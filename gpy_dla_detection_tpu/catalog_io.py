@@ -1,5 +1,5 @@
-"""Processed-catalog writer: HDF5 output byte-compatible in layout and
-variable names with the reference driver's catalog
+"""Processed-catalog writer: HDF5 (or numpy ``.npz``) output with the
+layout and variable names of the reference driver's catalog
 (reference: run_bayes_select.py:248-295), so downstream CDDF analysis
 tooling works on either pipeline's output.
 """
@@ -61,6 +61,36 @@ def results_to_arrays(
     return out
 
 
+def catalog_datasets(
+    results: list[SpectrumResult],
+    params: Parameters,
+    max_dlas: int,
+    z_qso_list,
+    qso_list,
+    all_exceptions=None,
+) -> dict:
+    """Every dataset of the processed catalog, by the reference's names
+    (reference: run_bayes_select.py:248-295), as numpy values."""
+    out = {
+        "prior_z_qso_increase": params.prior_z_qso_increase,
+        "k": params.k,
+        "normalization_min_lambda": params.normalization_min_lambda,
+        "normalization_max_lambda": params.normalization_max_lambda,
+        "min_z_cut": params.min_z_cut,
+        "max_z_cut": params.max_z_cut,
+        "num_dla_samples": params.num_dla_samples,
+        "num_lines": params.num_lines,
+        "num_forest_lines": params.num_forest_lines,
+    }
+    out = {name: np.asarray(value) for name, value in out.items()}
+    out.update(results_to_arrays(results, params, max_dlas))
+    out["z_qsos"] = np.asarray(z_qso_list, np.float64)
+    out["qso_list"] = np.asarray(qso_list, dtype=str)
+    if all_exceptions:
+        out["all_exceptions"] = np.asarray(all_exceptions)
+    return out
+
+
 def write_catalog(
     filename: str,
     results: list[SpectrumResult],
@@ -68,30 +98,47 @@ def write_catalog(
     max_dlas: int,
     z_qso_list,
     qso_list,
+    all_exceptions=None,
 ):
-    """Write the processed catalog with the reference's dataset names
-    (reference: run_bayes_select.py:248-295)."""
+    """Write the processed catalog with the reference's dataset names.
+
+    The container follows the suffix: ``.npz`` is written by numpy alone
+    (string datasets as unicode arrays); anything else is HDF5 through
+    h5py, the reference's format (strings as UTF-8).  Both hold the same
+    datasets with the same values.
+    """
+    arrays = catalog_datasets(
+        results, params, max_dlas, z_qso_list, qso_list, all_exceptions
+    )
+    if filename.endswith(".npz"):
+        with open(filename, "wb") as f:
+            np.savez(f, **arrays)
+        return
     import h5py
 
-    arrays = results_to_arrays(results, params, max_dlas)
     with h5py.File(filename, "w") as f:
-        f.create_dataset("prior_z_qso_increase", data=params.prior_z_qso_increase)
-        f.create_dataset("k", data=params.k)
-        f.create_dataset(
-            "normalization_min_lambda", data=params.normalization_min_lambda
-        )
-        f.create_dataset(
-            "normalization_max_lambda", data=params.normalization_max_lambda
-        )
-        f.create_dataset("min_z_cut", data=params.min_z_cut)
-        f.create_dataset("max_z_cut", data=params.max_z_cut)
-        f.create_dataset("num_dla_samples", data=params.num_dla_samples)
-        f.create_dataset("num_lines", data=params.num_lines)
-        f.create_dataset("num_forest_lines", data=params.num_forest_lines)
         for name, arr in arrays.items():
+            if arr.dtype.kind == "U":
+                arr = arr.astype(h5py.string_dtype(encoding="utf-8"))
             f.create_dataset(name, data=arr)
-        f.create_dataset("z_qsos", data=np.asarray(z_qso_list, np.float64))
-        f.create_dataset(
-            "qso_list",
-            data=np.asarray(qso_list, h5py.string_dtype(encoding="utf-8")),
-        )
+
+
+def read_catalog(filename: str) -> dict:
+    """All datasets of a catalog written by :func:`write_catalog`, as
+    numpy arrays (strings as ``str``), from either container."""
+    if filename.endswith(".npz"):
+        with np.load(filename) as z:
+            return {name: z[name] for name in z.files}
+    import h5py
+
+    out = {}
+    with h5py.File(filename, "r") as f:
+        for name in f:
+            arr = f[name][()]
+            if isinstance(arr, np.ndarray) and arr.dtype.kind in "OS":
+                arr = np.asarray(
+                    [x.decode() if isinstance(x, bytes) else x for x in arr],
+                    dtype=str,
+                )
+            out[name] = np.asarray(arr)
+    return out

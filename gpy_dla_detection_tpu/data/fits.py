@@ -228,3 +228,73 @@ def spec_reader(release: str = "dr12q"):
     if release == "dr14q":
         return read_spec_dr14q
     raise ValueError(f"release must be dr12q or dr14q, got {release!r}")
+
+
+# --- writer (synthetic surveys and tests) ---------------------------------
+
+
+def _card(key, value, comment=""):
+    if isinstance(value, bool):
+        v = "T" if value else "F"
+        body = f"{key:<8}= {v:>20}"
+    elif isinstance(value, int):
+        body = f"{key:<8}= {value:>20}"
+    elif isinstance(value, str):
+        body = f"{key:<8}= '{value:<8}'"
+    else:
+        body = f"{key:<8}= {value:>20}"
+    if comment:
+        body += f" / {comment}"
+    return body.ljust(80)[:80]
+
+
+def _block(cards):
+    text = "".join(cards) + "END".ljust(80)
+    pad = (-len(text)) % 2880
+    return (text + " " * pad).encode("ascii")
+
+
+def write_speclite(path, flux, loglam, ivar, and_mask):
+    """Write one SDSS "speclite"-layout FITS file: an empty primary HDU
+    and a COADD binary table with the columns ``flux``, ``loglam``,
+    ``ivar`` (big-endian f4) and ``and_mask`` (big-endian i4) — the
+    subset :func:`read_spec` reads.  Used to make synthetic surveys."""
+    n = flux.shape[0]
+    rec = np.zeros(
+        n,
+        dtype=[("flux", ">f4"), ("loglam", ">f4"), ("ivar", ">f4"), ("and_mask", ">i4")],
+    )
+    rec["flux"] = flux
+    rec["loglam"] = loglam
+    rec["ivar"] = ivar
+    rec["and_mask"] = and_mask
+    data = rec.tobytes()
+    pad = (-len(data)) % 2880
+
+    primary = _block([_card("SIMPLE", True), _card("BITPIX", 8), _card("NAXIS", 0)])
+    table_header = _block(
+        [
+            _card("XTENSION", "BINTABLE"),
+            _card("BITPIX", 8),
+            _card("NAXIS", 2),
+            _card("NAXIS1", rec.dtype.itemsize),
+            _card("NAXIS2", n),
+            _card("PCOUNT", 0),
+            _card("GCOUNT", 1),
+            _card("TFIELDS", 4),
+            _card("TTYPE1", "flux"),
+            _card("TFORM1", "E"),
+            _card("TTYPE2", "loglam"),
+            _card("TFORM2", "E"),
+            _card("TTYPE3", "ivar"),
+            _card("TFORM3", "E"),
+            _card("TTYPE4", "and_mask"),
+            _card("TFORM4", "J"),
+            _card("EXTNAME", "COADD"),
+        ]
+    )
+    with open(path, "wb") as f:
+        f.write(primary)
+        f.write(table_header)
+        f.write(data)
+        f.write(b"\x00" * pad)

@@ -1,6 +1,6 @@
 """Fixed-shape spectrum representation and host-side preprocessing.
 
-TPU-first replacement for the reference's stateful per-spectrum
+Fixed-shape replacement for the reference's stateful per-spectrum
 ``set_data`` (reference: gpy_dla_detection/null_gp.py:95-177): a
 ``Spectrum`` is an immutable pytree of *padded, masked* arrays with a
 static pixel count, so one compiled program serves every spectrum in

@@ -1,8 +1,8 @@
 """MCMC parameter estimation for DLA and CIV absorbers.
 
 Builds jittable log-posterior functions over absorber parameters and
-runs the native ensemble sampler (models/mcmc.py) — the TPU equivalent
-of the reference's emcee-based ``DLAGP.run_mcmc`` / ``CIVGP.run_mcmc``
+runs the native ensemble sampler (models/mcmc.py) — the batched
+equivalent of the reference's emcee-based ``DLAGP.run_mcmc`` / ``CIVGP.run_mcmc``
 (reference: gpy_dla_detection/dla_gp.py:227-309,
 log_posterior_mcmc.py:17-96, civ_gp.py:77-156,
 civ_log_posterior_mcmc.py:14-102).

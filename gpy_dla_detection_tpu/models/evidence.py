@@ -1,6 +1,6 @@
 """Model evidences: null GP and QMC-marginalized k-absorber models.
 
-TPU-native rewrite of the reference's sequential quasi-Monte-Carlo
+Batched rewrite of the reference's sequential quasi-Monte-Carlo
 marginalization (reference: gpy_dla_detection/dla_gp.py:92-225,
 subdla_gp.py:90-222):
 
@@ -35,20 +35,12 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.interp import chunked_searchsorted
-from ..ops.kernel_config import (
-    ABS_I16_SCALE,
-    FUSED_ABS,
-    on_tpu,
-    resolve_use_pallas,
-    resolve_voigt_impl,
-)
-from ..ops.logmvn import (
-    batched_log_mvnpdf,
-    likelihood_pair_basis,
-    log_mvnpdf_low_rank,
-)
+from ..ops.kernel_config import resolve_abs_store
+from ..ops.logmvn import batched_log_mvnpdf, log_mvnpdf_low_rank, pair_basis
 from ..ops.voigt import (
     absorption_from_unit_tau,
+    decode_profile_store,
+    encode_profile_store,
     voigt_absorption,
     voigt_absorption_lls,
 )
@@ -60,20 +52,13 @@ from .learned import SpectrumModel
 # plus the Lyman-limit break (reference: voigt_lls.py)
 PROFILES = {"dla": voigt_absorption, "lls": voigt_absorption_lls}
 
-# pass the chained-absorber profile rows to the likelihood kernel as
-# separate streams multiplied in VMEM (default) instead of
-# materializing their running product in HBM per level;
-# GPY_DLA_EXTRA_STREAMS=0 restores the materialized product.
-_EXTRA_STREAMS: bool = os.environ.get("GPY_DLA_EXTRA_STREAMS", "1") == "1"
-
 # importance resampler for the chained levels.  "multinomial" matches
 # the reference's np.random.choice draws (dla_gp.py:209-218);
 # "systematic" is the classic low-variance systematic resampler (one
 # uniform offset on a stratified comb, then one random rotation):
 # per-index counts are within 1 of S * p_i instead of Binomial(S, p_i),
 # and the drawn indices are one rotation of a sorted sequence, so the
-# chained (S, N) profile-row gathers read HBM nearly sequentially
-# (scripts/gather_bench.py measures the gather-order effect on device).
+# chained (S, N) profile-row gathers read memory nearly sequentially.
 _RESAMPLER: str = os.environ.get("GPY_DLA_RESAMPLER", "multinomial")
 if _RESAMPLER not in ("multinomial", "systematic"):
     raise ValueError(
@@ -81,72 +66,12 @@ if _RESAMPLER not in ("multinomial", "systematic"):
         f"got {_RESAMPLER!r}"
     )
 
-# storage format of the (S, N) single-absorber profiles and their
-# gathered chained streams.  The likelihood kernel decodes to f32 in
-# VMEM, so "i16" halves every HBM pass over the profile arrays (the 5
-# kernel reads of A, the per-level stream reads, and the 3 chained-row
-# gather passes — together the largest traffic item of the pipeline).
-# i16 arrays store round(a * 32767) — fixed point, since a is in [0, 1]
-# by construction — with UNIFORM 1.5e-5 absolute error.  bf16 storage
-# was measured and rejected: its 8-bit mantissa gives 2e-3-scale errors
-# at mid-absorption pixels -> 0.8 rms per-sample log-likelihood noise
-# and +0.3-0.6 log-evidence bias; the fixed-point grid keeps the
-# per-level evidences within ~1e-3 of exact storage
-# (tests/test_pipeline_conformance.py pins it).  GPY_DLA_ABS_DTYPE=f32
-# restores exact storage.
-_ABS_DTYPE_NAME: str = os.environ.get("GPY_DLA_ABS_DTYPE", "i16p")
-if _ABS_DTYPE_NAME not in ("f32", "i16", "i16p"):
-    raise ValueError(
-        f"GPY_DLA_ABS_DTYPE must be 'f32', 'i16' or 'i16p', "
-        f"got {_ABS_DTYPE_NAME!r}"
-    )
-# "i16p" (default) packs TWO i16 codes per int32 lane (contiguous
-# halves): same bytes as i16, but XLA's element-rate-bound row gather
-# moves half the elements — the chained-level gathers measure 2.15x
-# faster (ops/kernel_config.py).  Requires an even pixel count; odd-N
-# models fall back to plain i16 per spectrum.
-_ABS_DTYPE = {"f32": jnp.float32, "i16": jnp.int16, "i16p": jnp.int32}[
-    _ABS_DTYPE_NAME
-]
-
-
-def resolve_abs_store(dtype, x, num_pixels: int):
-    """Storage dtype of the (S, N) profile arrays, or None for "keep
-    the pipeline dtype" — the _ABS_DTYPE policy shared by
-    :func:`qmc_log_evidences` and the batch layer's fused absorption
-    path (parallel/batch.py).
-
-    The compact default applies to the f32 production pipeline only —
-    f64 runs are the high-precision conformance path.  Off-TPU, compact
-    storage is disabled: on XLA:CPU the fusion emitter MISCOMPILES the
-    profile chain when the packed-storage graph makes layout assignment
-    give the (spectra, samples, pixels) intermediates a transposed
-    {2,0,1} layout — sharded-vs-unsharded log-likelihood deltas of
-    O(100) on an 8-device host mesh, fixed by
-    --xla_disable_hlo_passes=fusion or by forcing the profile buffer to
-    the default layout, NOT fixed by optimization barriers (the corrupt
-    values arise inside the producer fusion).  Minimal repro + bisect:
-    scripts/xla_cpu_layout_repro.py.  On TPU the encode/decode live
-    inside the Mosaic kernels (ops/voigt_pallas.py, ops/logmvn_pallas.py),
-    a different code generator, where parity is pinned by
-    tests/test_pipeline_conformance.py.
-    """
-    abs_dtype = _ABS_DTYPE if dtype == jnp.float32 else dtype
-    if abs_dtype != dtype and not on_tpu(x):
-        abs_dtype = dtype
-    if jnp.dtype(abs_dtype) == jnp.int32 and num_pixels % 2:
-        abs_dtype = jnp.int16  # packed pairs need an even pixel count
-    return abs_dtype if abs_dtype != dtype else None
-
-
 def _draw_base_indices(key, probs, resampler: str) -> jnp.ndarray:
     """S chained-parent indices ~ Categorical(probs / sum(probs)).
 
     Both resamplers draw through the same chunked inverse-CDF count
-    (``jax.random.categorical`` lowers to an S x S gumbel argmax —
-    38 ms/level at S=10k; ``jnp.searchsorted`` to a serialized
-    binary-search gather chain — 43 ms/level; the chunked count is
-    ~1000x cheaper).
+    (ops/interp.chunked_searchsorted; ``jax.random.categorical`` would
+    lower to an S x S gumbel argmax).
 
     The systematic comb is ROTATED by a random shift: slot i of the
     chained level pairs parent ``base[i]`` with the FIXED new sample i,
@@ -198,11 +123,9 @@ def qmc_log_evidences(
     params: Parameters,
     base_inds_override: jnp.ndarray | None = None,
     profile: str = "dla",
-    use_pallas: bool | None = None,
     voigt_impl: str | None = None,
     unit_tau: jnp.ndarray | None = None,
     abs_dtype=None,
-    A_override: jnp.ndarray | None = None,
 ) -> QMCEvidenceResult:
     """Marginalize the k-absorber models over the QMC sample set.
 
@@ -215,90 +138,50 @@ def qmc_log_evidences(
     :param base_inds_override: optional (max_k - 1, S) resampling
         indices; replaces the categorical draws (used to reproduce a
         reference run bit-for-bit in conformance tests).
-    :param use_pallas, voigt_impl: static kernel selection, threaded to
-        ops.logmvn / ops.voigt (None = auto; see ops/kernel_config.py).
+    :param voigt_impl: static Voigt strategy, threaded to ops.voigt
+        (None = exact; see ops/kernel_config.py).
     :param unit_tau: optional precomputed (S, P) per-unit-nhi Lyman
         optical depth for THESE offset samples (profile "dla" only).
         The DLA and subDLA sample sets share their redshift offsets
         (reference: multi_dlas/set_lls_parameters.m:22,59), so the
         batch layer computes the expensive Faddeeva factor once and
         passes it to both marginalizations.
-    :param abs_dtype: storage dtype of the (S, N) profiles (None =
-        GPY_DLA_ABS_DTYPE; conformance tests pin jnp.float32).
+    :param abs_dtype: storage of the (S, N) profiles (static): None =
+        the pipeline dtype, or an explicit dtype or name
+        (ops/kernel_config.resolve_abs_store).
     """
     S = offset_samples.shape[0]
     dtype = model.y.dtype
     log_S = jnp.log(jnp.asarray(S, dtype))
     min_sep = jnp.asarray(params.min_z_separation, dtype)
-    if abs_dtype is None:
-        store = resolve_abs_store(dtype, model.y, model.y.shape[0])
-    else:
-        if jnp.dtype(abs_dtype) == jnp.int32 and model.y.shape[0] % 2:
-            abs_dtype = jnp.int16  # packed pairs need an even pixel count
-        store = abs_dtype if abs_dtype != dtype else None
+    store = resolve_abs_store(abs_dtype, dtype, model.y.shape[0])
 
     z_samples = model.min_z_dla + (model.max_z_dla - model.min_z_dla) * offset_samples
-    # chained levels gather the parent's (z, logNHI) pair as ONE 2-lane
-    # row gather: XLA's 1-D TPU gather lowers to a serialized S(1)
-    # layout (measured 2.13 ms per (320k,) take vs 0.65 ms for a
-    # (320k, 2) row gather — narrow row gathers are row-rate bound, so
-    # both values ride one gather for less than half of either 1-D one)
+    # chained levels gather the parent's (z, logNHI) pair as ONE
+    # 2-column row gather instead of two 1-D gathers
     zn_table = jnp.stack([z_samples, log_nhi_samples], axis=1)  # (S, 2)
 
     # single-absorber profiles for every sample, computed once: (S, N)
-    if A_override is not None:
-        # the batch layer computed the storage-encoded profiles in the
-        # fully fused absorption kernel (one kernel for both the DLA
-        # and subDLA families — ops/voigt_pallas.absorption_all_pallas)
-        A = A_override
-    elif unit_tau is not None and profile == "dla":
-        A = absorption_from_unit_tau(unit_tau, nhi_samples, out_dtype=store)
-    elif (
-        FUSED_ABS
-        and resolve_voigt_impl(voigt_impl, model.y) == "windowed"
-        and on_tpu(model.y)
-    ):
-        # "windowed" resolves only on TPU/f32, where the fused kernel
-        # computes far field + windows + placement + exp + broadening +
-        # encode in one pallas_call; the Lyman-limit break of the LLS
-        # profile is linear in nhi and rides the shared unit tau
-        from ..ops.voigt_pallas import absorption_all_pallas
+    with jax.named_scope("absorption"):
+        if unit_tau is not None and profile == "dla":
+            A = absorption_from_unit_tau(unit_tau, nhi_samples, out_dtype=store)
+        else:
+            A = encode_profile_store(
+                PROFILES[profile](
+                    model.padded_wavelengths,
+                    nhi_samples,
+                    z_samples,
+                    params.num_lines,
+                    impl=voigt_impl,
+                ),
+                store,
+            )
 
-        (A,) = absorption_all_pallas(
-            model.padded_wavelengths,
-            z_samples,
-            (nhi_samples,),
-            params.num_lines,
-            out_dtype=store,
-            lls_break=(profile == "lls"),
-        )
-    else:
-        A = PROFILES[profile](
-            model.padded_wavelengths,
-            nhi_samples,
-            z_samples,
-            params.num_lines,
-            impl=voigt_impl,
-        )
-        if store is not None:
-            from ..ops.voigt import encode_profile_store
-
-            A = encode_profile_store(A, store)
-
-    # the basis is shared by all max_k + 1 likelihood calls; build it
-    # once in the layout the resolved kernel wants (packed triangle on
-    # the packed Pallas path — ops/logmvn.likelihood_pair_basis)
-    M_pair = likelihood_pair_basis(model.M, use_pallas)
-
-    # separate extra streams only pay inside the Pallas kernel (the
-    # gathered rows multiply in VMEM); the XLA composition would
-    # re-multiply every previous level's rows each level — O(max_k^2)
-    # (S, N) passes vs O(max_k) with the running product — so it keeps
-    # the old materialized product.
-    streams = _EXTRA_STREAMS and resolve_use_pallas(use_pallas, model.y)
+    # the basis is shared by all max_k + 1 likelihood calls
+    M_pair = pair_basis(model.M)
 
     # state threaded through the static level loop
-    extra_factors = []  # chained absorber profile rows, one per level
+    chained = None  # running product of the chained absorbers' profiles
     z_rows = [z_samples]  # level-k absorber redshifts, one row per chain slot
     lognhi_rows = [log_nhi_samples]
     alive = jnp.asarray(True)
@@ -316,73 +199,50 @@ def qmc_log_evidences(
 
     for k0 in range(max_k):  # k0 = number of *additional* absorbers
         if k0 > 0:
-            if base_inds_override is not None:
-                base = base_inds_override[k0 - 1]
-            else:
-                logits = jnp.where(prev_valid, prev_ll_centered, -jnp.inf)
-                # if the previous level underflowed entirely, keep indices
-                # in-range with uniform logits (results are NaN-masked)
-                logits = jnp.where(alive, logits, jnp.zeros_like(logits))
-                probs = jnp.exp(logits - jnp.max(logits))
-                base = _draw_base_indices(keys[k0 - 1], probs, _RESAMPLER)
-            base_inds_rows.append(base)
-            # chain the resampled absorber by gathering its precomputed
-            # profile row: the (S, N) gather measures ~8 ms vs ~35 ms
-            # for a fresh Voigt pass (profiler-verified; round 1 had
-            # this backwards from broken microbenchmarks).  The gathered
-            # rows are passed to the likelihood kernel as SEPARATE
-            # streams and multiplied in VMEM — materializing their
-            # running product would cost a full (S, N) read-modify-write
-            # HBM pass per level >= 3.
-            # mode="clip" is load-bearing: jnp.take's default fill mode
-            # emits an out-of-bounds SELECT over the gathered output — a
-            # full extra (S, N) read+write HBM pass per chained level
-            # (profiler: 3 x 0.15 ms/spectrum).  base is in [0, S-1] by
-            # construction (_draw_base_indices clips its searchsorted
-            # result; base_inds_override comes from stored catalogs),
-            # so clip semantics are identical.
-            gathered = jnp.take(A, base, axis=0, mode="clip")
-            if streams:
-                # the kernel decodes each stream in VMEM; int16
-                # fixed-point rows stay int16 through the gather (half
-                # the HBM pass)
-                extra_factors.append(gathered)
-            else:
-                # XLA running product accumulates decoded profiles in
-                # the spectrum dtype
-                if gathered.dtype == jnp.int16:
-                    g = gathered.astype(dtype) * (1.0 / ABS_I16_SCALE)
-                elif gathered.dtype == jnp.int32:  # packed i16 pairs
-                    lo = (gathered & 0xFFFF).astype(dtype)
-                    hi = (gathered >> 16).astype(dtype)
-                    g = jnp.concatenate([lo, hi], axis=-1) * (
-                        1.0 / ABS_I16_SCALE
-                    )
+            with jax.named_scope("resample"):
+                if base_inds_override is not None:
+                    base = base_inds_override[k0 - 1]
                 else:
-                    g = gathered.astype(dtype)
-                if not extra_factors:
-                    extra_factors.append(g)
-                else:
-                    extra_factors[-1] = extra_factors[-1] * g
-            zn = jnp.take(zn_table, base, axis=0, mode="clip")  # (S, 2)
-            z_rows.append(zn[:, 0])
-            lognhi_rows.append(zn[:, 1])
+                    logits = jnp.where(prev_valid, prev_ll_centered, -jnp.inf)
+                    # if the previous level underflowed entirely, keep indices
+                    # in-range with uniform logits (results are NaN-masked)
+                    logits = jnp.where(alive, logits, jnp.zeros_like(logits))
+                    probs = jnp.exp(logits - jnp.max(logits))
+                    base = _draw_base_indices(keys[k0 - 1], probs, _RESAMPLER)
+                base_inds_rows.append(base)
+                # chain the resampled absorber by gathering its precomputed
+                # profile row instead of a fresh Voigt pass.
+                # mode="clip" is load-bearing: jnp.take's default fill mode
+                # emits an out-of-bounds select over the gathered output — a
+                # full extra (S, N) read+write pass per chained level.  base
+                # is in [0, S-1] by construction (_draw_base_indices clips
+                # its searchsorted result; base_inds_override comes from
+                # stored catalogs), so clip semantics are identical.
+                g = decode_profile_store(
+                    jnp.take(A, base, axis=0, mode="clip"), dtype
+                )
+                chained = g if chained is None else chained * g
+                zn = jnp.take(zn_table, base, axis=0, mode="clip")  # (S, 2)
+                z_rows.append(zn[:, 0])
+                lognhi_rows.append(zn[:, 1])
 
-        ll = (
-            batched_log_mvnpdf(
-                model.y,
-                model.mu,
-                model.M,
-                model.omega2,
-                model.v,
-                model.mask,
-                A,
-                M_pair,
-                use_pallas=use_pallas,
-                extra=tuple(extra_factors) if k0 > 0 else None,
-            )
-            - log_S
+        profiles = A if chained is None else (
+            decode_profile_store(A, dtype) * chained
         )
+        with jax.named_scope("likelihood"):
+            ll = (
+                batched_log_mvnpdf(
+                    model.y,
+                    model.mu,
+                    model.M,
+                    model.omega2,
+                    model.v,
+                    model.mask,
+                    profiles,
+                    M_pair,
+                )
+                - log_S
+            )
 
         # pair-separation validity (reference: dla_gp.py:164-177)
         if k0 > 0:
@@ -405,12 +265,10 @@ def qmc_log_evidences(
         sample_lls.append(jnp.where(valid & alive, ll, jnp.nan))
 
         # MAP chain for this level (reference: dla_gp.py:428-472).
-        # One-hot masked sums, NOT r[maxind]: the vmapped dynamic
-        # scalar gather lowers to a serialized S(1)-scratch gather the
-        # profiler measured at 9 ms per batch step PER EXTRACTION
-        # (0.78 ms/spectrum across the levels); the masked reduction is
+        # One-hot masked sums, not r[maxind]: the masked reduction is
         # bit-exact (one nonzero term) and fuses into the level's
-        # elementwise work.
+        # elementwise work, where a vmapped dynamic scalar gather would
+        # be a separate small op per extraction.
         maxind = jnp.argmax(jnp.where(valid, ll, -jnp.inf))
         onehot = jnp.arange(S) == maxind  # (S,) exactly one True
         pick = lambda rows: jnp.sum(

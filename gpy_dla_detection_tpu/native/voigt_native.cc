@@ -3,7 +3,7 @@
 // The runtime twin of the reference's MEX extension (reference:
 // voigt.c:253-304, which linked against libcerf).  This library
 // implements the Faddeeva function itself — the same two-region scheme
-// as the TPU kernel (Weideman rational approximation inside |z| <= 7,
+// as ops/faddeeva.py (Weideman rational approximation inside |z| <= 7,
 // truncated continued fraction outside) — so the framework has a fast,
 // dependency-free host compute path and an independent test oracle.
 //

@@ -1,9 +1,9 @@
-"""TPU-native Faddeeva function.
+"""Faddeeva function in plain JAX.
 
 The reference pipeline evaluates the Voigt profile through
 ``scipy.special.wofz`` (reference: gpy_dla_detection/voigt.py:241-248)
-or libcerf's ``voigt()`` (reference: voigt.c:282-292).  Neither exists
-on TPU, so we implement ``Re/Im w(z)`` for ``Im z >= 0`` from scratch
+or libcerf's ``voigt()`` (reference: voigt.c:282-292).  Neither runs
+inside a jitted XLA program, so we implement ``Re/Im w(z)`` for ``Im z >= 0`` from scratch
 with two blended regions, both branch-free and vectorizable:
 
 * ``|z| <= RADIUS``: Weideman (1994) rational approximation with
@@ -16,9 +16,8 @@ with two blended regions, both branch-free and vectorizable:
   ``Re w ~ y / (sqrt(pi) x^2)`` is tiny but scientifically load-bearing
   (DLA damping wings extend to x ~ 1e3 thermal widths).
 
-Everything is written with real-pair arithmetic (no complex dtypes) so
-the same code path lowers cleanly to the TPU VPU and can be pasted into
-a Pallas kernel body.
+Everything is written with real-pair arithmetic (no complex dtypes), so
+the whole evaluation is elementwise float work that XLA fuses.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ SQRT_PI = 1.7724538509055160273
 
 # region switch radius |z| and term counts (see accuracy test in
 # tests/test_faddeeva.py).  Term counts are dtype-tiered: the f32 path
-# (TPU production) uses N=20 / K=5 (1.8e-8 relative at |z|=7, below
+# (production) uses N=20 / K=5 (1.8e-8 relative at |z|=7, below
 # f32 rounding); the f64 path uses N=40 / K=14 (~1e-14).
 RADIUS = 7.0
 N_WEIDEMAN = 40

@@ -39,11 +39,10 @@ def chunked_searchsorted(sorted_values, queries, chunk: int = 128):
     two-level vectorized count.
 
     ``jnp.searchsorted`` lowers to a serialized binary-search gather
-    chain on TPU (measured 43 ms for 10k queries into a 10k table —
-    dominating whole pipeline stages); this compares each query against
-    the 128-aligned chunk maxima, gathers ONE chunk per query from the
-    tiny (n_chunks, 128) table, and counts within.  O(n/128 + 128)
-    comparisons per query, all VPU-friendly.
+    chain; this compares each query against the 128-aligned chunk
+    maxima, fetches ONE chunk per query from the tiny (n_chunks, 128)
+    table, and counts within.  O(n/128 + 128) comparisons per query,
+    all elementwise.
 
     :param sorted_values: (n,) ascending.
     :param queries: (...,) arbitrary shape.
@@ -51,44 +50,19 @@ def chunked_searchsorted(sorted_values, queries, chunk: int = 128):
     """
     n = sorted_values.shape[0]
     nc = -(-n // chunk)
-    f32 = sorted_values.dtype == jnp.float32
-    # f32 fast route fetches each query's chunk row by an EXACT one-hot
-    # MXU matmul instead of jnp.take: XLA's TPU row gather is
-    # output-row-rate bound (~1.8 ms per 320k-row gather in the bench
-    # pipeline) regardless of the tiny (nc, 128) operand.  The table is
-    # pre-split into three bf16 planes (hi = bf16(x), mid = bf16(x-hi),
-    # lo = x-hi-mid: 3 x 8 mantissa bits cover f32's 24) so the one-hot
-    # rows (exact in bf16) reconstruct the row values bit-exactly and
-    # the counts are unchanged.  The pad value must be FINITE for this
-    # (inf splits to NaN and 0 * NaN poisons the dot): 2^127 is
-    # bf16-exact, above any physical query, and plays inf's role.
-    pad_val = 2.0**127 if f32 else jnp.inf
     padded = jnp.pad(
-        sorted_values, (0, nc * chunk - n), constant_values=pad_val
+        sorted_values, (0, nc * chunk - n), constant_values=jnp.inf
     ).reshape(nc, chunk)
     tops = padded[:, -1]  # (nc,)
     q = queries[..., None]
     c_idx = jnp.clip(
         jnp.sum(q >= tops, axis=-1).astype(jnp.int32), 0, nc - 1
     )
-    if f32:
-        flat_c = c_idx.reshape(-1)
-        oh = (
-            flat_c[:, None] == jnp.arange(nc, dtype=jnp.int32)[None, :]
-        ).astype(jnp.bfloat16)
-        hi = padded.astype(jnp.bfloat16)
-        r1 = padded - hi.astype(jnp.float32)
-        mid = r1.astype(jnp.bfloat16)
-        lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-        rows = (
-            jnp.dot(oh, hi, preferred_element_type=jnp.float32)
-            + jnp.dot(oh, mid, preferred_element_type=jnp.float32)
-            + jnp.dot(oh, lo, preferred_element_type=jnp.float32)
-        ).reshape(c_idx.shape + (chunk,))
-    else:
-        # mode="clip": c_idx is already clipped in-range; the default
-        # fill mode would add an out-of-bounds select pass on the gather
-        rows = jnp.take(padded, c_idx, axis=0, mode="clip")
+    # mode="clip": c_idx is already clipped in-range; the default fill
+    # mode would add an out-of-bounds select pass on the gather.  (A
+    # one-hot bf16 matmul over a three-plane split of the table, in
+    # place of this gather, miscounted on XLA:GPU.)
+    rows = jnp.take(padded, c_idx, axis=0, mode="clip")
     within = jnp.sum(q >= rows, axis=-1).astype(jnp.int32)
     return jnp.minimum(c_idx * chunk + within, n)
 

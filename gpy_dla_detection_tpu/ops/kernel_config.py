@@ -1,174 +1,94 @@
-"""Kernel-implementation selection.
+"""Kernel-variant selection.
 
-The hot ops have more than one implementation (fused Pallas kernel vs
-XLA composition for the Woodbury log-density; exact vs windowed vs
-Pallas Voigt).  Which one runs is an explicit *static argument* threaded
-through the call chain — never read from the environment inside traced
-code, so behavior cannot depend on jit-cache state or call order.
+Two hot ops have more than one implementation: the Voigt profile
+("exact" Weideman+CF blend at every pixel, or "windowed": a cheap far
+field plus the exact blend on a 256-px window around each line) and the
+storage of the (S, N) absorption profiles (the pipeline dtype, or
+16-bit fixed point).  Which one runs is an explicit *static argument*
+threaded through the call chain, resolved here from that argument and
+from what the code can see (the dtype, the pixel count) — never from
+the environment or the platform, so behaviour cannot depend on
+jit-cache state, call order or the machine.
 
-The ``GPY_DLA_*`` environment variables are read exactly once, at
-import time (here or in the module that owns them), and only set the
-defaults used when a caller passes ``None`` ("auto").
+Defaults are the plain paths: the exact Voigt and storage in the
+pipeline dtype.  The windowed Voigt and the fixed-point storage are
+reachable by explicit choice on float32 pipelines.
 
-Support policy (round 5).  Every flag is one of:
-
-* PRODUCTION — selects between supported configurations; both values
-  exercised by hermetic tests.  GPY_DLA_USE_PALLAS, GPY_DLA_FAST_VOIGT,
-  GPY_DLA_WINDOW_TIER, GPY_DLA_FUSED_ABS, GPY_DLA_FUSED_POLY,
-  GPY_DLA_ABS_DTYPE (f32/i16/i16p), GPY_DLA_RESAMPLER
-  (multinomial/systematic).
-* ABLATION-ONLY — keeps a measured-slower-but-correct variant for
-  re-measurement on future hardware; parity-tested, never the default:
-  GPY_DLA_PACKED=0 (flat chain layout), GPY_DLA_CHAIN_R2=0 (rank-1
-  chain; also the odd-k semantics), GPY_DLA_U_SPLIT=0 (6-pass HIGHEST
-  u dot), GPY_DLA_EXTRA_STREAMS=0 (materialized stream product).
-* EXPERIMENT KNOBS — numeric tuning inputs, not code paths:
-  GPY_DLA_BLOCK_S, GPY_DLA_CHAIN_BS.
-* DELETED in round 5 (measured-and-rejected; PERFORMANCE.md keeps the
-  numbers): GPY_DLA_FUSED_TIER, GPY_DLA_PALLAS_VOIGT,
-  GPY_DLA_SPLIT_CHAIN, GPY_DLA_CHAIN_T, GPY_DLA_CHAIN_DOT.
-
-(Deployment/config variables — GPY_DLA_DATA_DIR, GPY_DLA_SPECTRA_DIR,
-GPY_DLA_NUM_SPECTRA, GPY_DLA_DRYRUN_FULL, GPY_DLA_NUM_PROCESSES,
-GPY_DLA_COORDINATOR, GPY_DLA_PROCESS_ID — are not kernel toggles.)
+Environment variables that remain are read once, at import time, and
+are not kernel toggles except GPY_DLA_WINDOW_TIER (ops/voigt.py, the
+two-tier window evaluation of the windowed variant) and
+GPY_DLA_RESAMPLER (models/evidence.py).  Deployment variables —
+GPY_DLA_DATA_DIR, GPY_DLA_SPECTRA_DIR, GPY_DLA_NUM_SPECTRA,
+GPY_DLA_NUM_PROCESSES, GPY_DLA_COORDINATOR, GPY_DLA_PROCESS_ID — say
+where data and peers are.
 """
 
 from __future__ import annotations
 
 import os
 
-import jax
 import jax.numpy as jnp
 
-# fused Pallas Woodbury kernel (ops/logmvn_pallas.py); on by default on
-# TPU — ~30% faster end to end than the XLA composition (PERFORMANCE.md)
-DEFAULT_USE_PALLAS: bool = os.environ.get("GPY_DLA_USE_PALLAS", "1") == "1"
-
-# Voigt evaluation strategy: "windowed" (CF everywhere + exact Weideman
-# on a chunk-aligned 256-px window per line center; default — ~10%
-# faster end to end once the chained levels gather instead of
-# recomputing) or "exact" (full Weideman+CF blend at every pixel,
-# GPY_DLA_FAST_VOIGT=0; agrees with windowed to ~1e-4 relative in log
-# evidence).  See PERFORMANCE.md.  (The round-1 standalone "pallas"
-# strategy, GPY_DLA_PALLAS_VOIGT, was measured slower than the XLA
-# windowed composition on v5e and deleted in round 5; the production
-# TPU path is the FUSED_ABS kernel below, not a voigt impl.)
-if os.environ.get("GPY_DLA_FAST_VOIGT", "1") == "1":
-    DEFAULT_VOIGT_IMPL: str = "windowed"
-else:
-    DEFAULT_VOIGT_IMPL = "exact"
-
-
-# Two-tier window evaluation (ops/voigt._windowed_tau_parts, f32 fast
-# path): the 20-term Weideman Horner + full-K CF run only on a 96-px
-# strip around each line center (the |z| <= RADIUS core spans ~±1.3 px
-# and the K=2 CF is exact to <2e-8 beyond the strip edge at |z| >~ 59);
-# the rest of the 256-px window uses the 2-term CF.  ~2x fewer VPU
-# flops in the window stage, which the stage-level timing shows is
-# compute-bound (PERFORMANCE.md round 3).  GPY_DLA_WINDOW_TIER=0
+# Two-tier window evaluation (ops/voigt._windowed_tau_parts, f32
+# windowed path): the 20-term Weideman Horner + full-K CF run only on a
+# 96-px strip around each line center (the |z| <= RADIUS core spans
+# ~±1.3 px and the K=2 CF is exact to <2e-8 beyond the strip edge at
+# |z| >~ 59); the rest of the 256-px window uses the 2-term CF — about
+# half the arithmetic of the window stage.  GPY_DLA_WINDOW_TIER=0
 # restores the full-window Weideman+CF blend.
 WINDOW_TIER: bool = os.environ.get("GPY_DLA_WINDOW_TIER", "1") == "1"
 
-# Fully fused absorption kernel (ops/voigt_pallas.absorption_all_pallas,
-# TPU f32 windowed path only): the far field + window corrections +
-# placement + exp + broadening + storage encode for BOTH column-density
-# families run as ONE kernel — the XLA windowed-parts construction
-# the kernel replaces profiled at ~1.4 ms/spectrum of HBM-round-tripping
-# fusions (PERFORMANCE.md round 4).  GPY_DLA_FUSED_ABS=0 restores the
-# parts + placement-kernel composition.
-FUSED_ABS: bool = os.environ.get("GPY_DLA_FUSED_ABS", "1") == "1"
-
-# Per-line polynomial Faddeeva inside the fused kernel (the Lorentzian
-# width is a compile-time constant per Lyman line, so
-# Re w(x+iy) = exp(-u) + y*R(u) with R a smooth O(1) function —
-# ~35 flops/px replace the ~210-flop Weideman + full-K CF blend at
-# BETTER near-core accuracy; fits generated from scipy's f64 wofz at
-# trace time, measured ~1e-6 relative across the window).
-# GPY_DLA_FUSED_POLY=0 restores the Weideman/CF blend in-kernel.
-FUSED_POLY: bool = os.environ.get("GPY_DLA_FUSED_POLY", "1") == "1"
-
-def largest_aligned_divisor(s: int, budget: int, align: int = 8):
-    """Largest multiple of ``align`` <= ``budget`` that divides ``s``,
-    or None when no such divisor exists (callers then pad to their
-    budget).  The shared sample-block sizing rule of the Pallas
-    kernels: a block that DIVIDES the sample count avoids the
-    pad + copy + slice pass the profiler measured at 12% of device
-    time (see ops/logmvn_pallas.py:_block_s)."""
-    for b in range(min(budget, s) // align * align, align - 1, -align):
-        if s % b == 0:
-            return b
-    return None
-
-
-def on_tpu(x) -> bool:
-    """Best-effort: will ``x`` be dispatched to a TPU?
-
-    Deterministic given the jax configuration (no environment reads): a
-    configured default device wins over the backend ranking, because
-    some TPU plugins register themselves even when JAX_PLATFORMS asks
-    for cpu.
-    """
-    try:
-        aval_devices = getattr(x, "devices", None)
-        if callable(aval_devices):
-            return any(d.platform == "tpu" for d in x.devices())
-    except Exception:
-        pass
-    default_device = jax.config.jax_default_device
-    if default_device is not None:
-        return getattr(default_device, "platform", None) == "tpu"
-    return jax.default_backend() == "tpu"
-
-
-def pallas_eligible(x) -> bool:
-    """The compiled fused kernels require f32 without global x64
-    upcasting (Mosaic rejects the i64 index mode x64 implies)."""
-    return jnp.result_type(x) == jnp.float32 and not jax.config.jax_enable_x64
-
-
-def resolve_use_pallas(use_pallas: bool | None, x) -> bool:
-    """Resolve the tri-state kernel selection for the Woodbury op.
-
-    ``None``: auto — the import-time default, gated on Mosaic
-    eligibility and on actually being on TPU.  ``True``: forced — f32
-    inputs required; off-TPU the kernel runs in interpret mode (the
-    x64 restriction is Mosaic-only, so tests on the virtual CPU mesh
-    may force the kernel with x64 globally enabled).
-    """
-    if use_pallas is None:
-        return DEFAULT_USE_PALLAS and pallas_eligible(x) and on_tpu(x)
-    if not use_pallas:
-        return False
-    if jnp.result_type(x) != jnp.float32:
-        return False
-    return not (on_tpu(x) and jax.config.jax_enable_x64)
+VOIGT_IMPLS = ("exact", "windowed")
 
 
 def resolve_voigt_impl(impl: str | None, x) -> str:
-    """Resolve the Voigt strategy; the fast paths are f32/TPU-only."""
+    """The Voigt strategy that runs for inputs like ``x``.
+
+    None means "exact".  "windowed" is a float32 fast path (its window
+    lookups use an f32 line-center estimate); other dtypes — the f64
+    reference above all — resolve to "exact".
+    """
     if impl is None:
-        impl = DEFAULT_VOIGT_IMPL
-    if impl != "exact" and not (pallas_eligible(x) and on_tpu(x)):
+        return "exact"
+    if impl not in VOIGT_IMPLS:
+        raise ValueError(f"voigt impl must be one of {VOIGT_IMPLS}, got {impl!r}")
+    if impl == "windowed" and jnp.result_type(x) != jnp.float32:
         return "exact"
     return impl
 
 
-# fixed-point scale of int16 absorption-profile storage
-# (GPY_DLA_ABS_DTYPE=i16, models/evidence.py): profiles are in [0, 1]
-# by construction, stored as round(a * ABS_I16_SCALE) and decoded as
-# x * (1 / ABS_I16_SCALE) — uniform 1.5e-5 absolute error at half the
-# HBM traffic of f32.  Shared by the encode (ops/voigt*) and decode
-# (ops/logmvn*) sides.
+# fixed-point scale of 16-bit absorption-profile storage: profiles are
+# in [0, 1] by construction, stored as round(a * ABS_I16_SCALE) and
+# decoded as x * (1 / ABS_I16_SCALE) — uniform 1.5e-5 absolute error
+# at half the memory traffic of f32.  Shared by the encode and decode
+# sides (ops/voigt.encode_profile_store / decode_profile_store).
 ABS_I16_SCALE = 32767.0
 
+# int32 PACKED i16-pair storage ("i16p"): element j of a packed
+# (S, N/2) int32 array holds the fixed-point codes of pixels j (low
+# half) and j + N/2 (high half) — contiguous halves, so pack/unpack are
+# two static slices and a concat, never an interleave.  Same bytes as
+# int16, half the elements for the row gathers of the chained levels.
+# Codes are in [0, 32767] so the sign bit of both halves is always
+# clear: arithmetic >> 16 and & 0xffff recover them exactly.
+ABS_STORES = {"f32": None, "i16": jnp.int16, "i16p": jnp.int32}
 
-# int32 PACKED i16-pair storage (GPY_DLA_ABS_DTYPE=i16p, the default):
-# lane j of a packed (S, N/2) int32 array holds the fixed-point codes
-# of pixels j (low half) and j + N/2 (high half) — contiguous halves,
-# so pack/unpack are two static lane slices and a concat, never an
-# interleave.  XLA's TPU row gather is ELEMENT-rate bound (measured
-# 0.134/0.170/0.079 ms per (10k, 1280) gather for f32/i16/packed-i32:
-# same bytes, half the elements, 2.15x faster than i16), so the
-# chained-level gathers ride the packed form and the kernels decode in
-# VMEM.  Codes are in [0, 32767] so the sign bit of both halves is
-# always clear: arithmetic >> 16 and & 0xffff recover them exactly.
+
+def resolve_abs_store(abs_dtype, dtype, num_pixels: int):
+    """Storage dtype of the (S, N) profile arrays, or None for "keep the
+    pipeline dtype".
+
+    :param abs_dtype: an explicit choice — None (pipeline dtype), a
+        dtype, or one of the names in ``ABS_STORES``.
+    :param dtype: the pipeline dtype.
+    :param num_pixels: N; packed pairs need it even and fall back to
+        plain int16 otherwise.
+    """
+    if isinstance(abs_dtype, str) and abs_dtype in ABS_STORES:
+        abs_dtype = ABS_STORES[abs_dtype]
+    if abs_dtype is None:
+        return None
+    abs_dtype = jnp.dtype(abs_dtype)
+    if abs_dtype == jnp.int32 and num_pixels % 2:
+        abs_dtype = jnp.dtype(jnp.int16)
+    return None if abs_dtype == jnp.dtype(dtype) else abs_dtype

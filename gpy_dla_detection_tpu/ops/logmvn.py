@@ -8,7 +8,7 @@ computed in O(n k^2) via the Woodbury identity with a rank-k capacitance
 matrix ``B = I + M^T D^-1 M`` (reference:
 gpy_dla_detection/null_gp.py:307-360, log_mvnpdf_low_rank.m:1-33).
 
-TPU-first design decisions:
+Design decisions:
 
 * **masked, fixed-shape**: spectra are padded to a static pixel count;
   invalid pixels enter with ``1/d = 0`` (equivalent to infinite noise)
@@ -21,9 +21,13 @@ TPU-first design decisions:
   * a_s^2``), so ``batched_log_mvnpdf`` never materializes the
   (S, N, k) tensor: the capacitance matrices for all samples come from
   one (S, N) x (N, k^2) matmul against the precomputed outer-product
-  basis of M — this is the MXU-resident formulation of the 10,000
-  likelihood evaluations the reference runs in a serial Python loop
-  (reference: dla_gp.py:128-159).
+  basis of M — one matrix product in place of the 10,000 likelihood
+  evaluations the reference runs in a serial Python loop (reference:
+  dla_gp.py:128-159).
+
+* every float32 product runs at ``Precision.HIGHEST``: a default-
+  precision product may run in TF32 (about three decimal digits) on
+  the GPU, which the evidences cannot afford.
 
 * the k x k Cholesky factorizations are batched over samples.
 """
@@ -33,9 +37,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .kernel_config import ABS_I16_SCALE, on_tpu, resolve_use_pallas
+from .voigt import decode_profile_store
 
 LOG_2PI = 1.8378770664093453
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _masked_inputs(y, mu, d, mask):
@@ -61,10 +66,11 @@ def log_mvnpdf_low_rank(y, mu, M, d, mask=None):
     k = M.shape[-1]
     D_inv_M = M * d_inv[..., None]  # (..., N, k)
     B = jnp.eye(k, dtype=y.dtype) + jnp.einsum(
-        "...ni,...nj->...ij", M, D_inv_M
+        "...ni,...nj->...ij", M, D_inv_M, precision=HIGHEST
     )
     L = jnp.linalg.cholesky(B)
-    u = jnp.einsum("...ni,...n->...i", M, d_inv * delta)  # M^T D^-1 delta
+    # M^T D^-1 delta
+    u = jnp.einsum("...ni,...n->...i", M, d_inv * delta, precision=HIGHEST)
     t = jax.scipy.linalg.solve_triangular(L, u[..., None], lower=True)[..., 0]
 
     quad = jnp.sum(delta * delta * d_inv, axis=-1) - jnp.sum(t * t, axis=-1)
@@ -93,30 +99,13 @@ def pair_basis(M):
     return (M[:, :, None] * M[:, None, :]).reshape(N, k * k)
 
 
-def likelihood_pair_basis(M, use_pallas=None):
-    """Pair basis in the layout the RESOLVED likelihood backend wants:
-    the packed lower triangle when the packed Pallas kernel will run
-    (so the per-call packed-column gather disappears — it measured
-    2.1 ms per 32-spectrum batch step, x3 instances), the flat (N, k^2)
-    outer-product basis otherwise.  Callers that share one basis across
-    several ``batched_log_mvnpdf`` calls should use this."""
-    if resolve_use_pallas(use_pallas, M):
-        from .logmvn_pallas import packed_pair_basis, packed_path_active
-
-        if packed_path_active():
-            return packed_pair_basis(M)
-    return pair_basis(M)
-
-
 def batched_quad_logdet(B, u):
     """(u^T B^-1 u, log det B) for a batch of small SPD matrices.
 
     Unrolled Cholesky with the forward substitution fused in, expressed
-    as k rank-1 elementwise updates over the batch — XLA's batched
-    ``cholesky``/``triangular_solve`` on (S, 20, 20) problems lower to
-    catastrophically slow loops on TPU (measured ~50 ms for S=10k where
-    this runs in <1 ms), so the factorization is hand-unrolled onto the
-    VPU.
+    as k rank-1 elementwise updates over the sample axis, in place of a
+    batched ``cholesky``/``triangular_solve`` that would run k x k
+    solver loops per sample.
 
     :param B: (S, k, k) SPD.
     :param u: (S, k).
@@ -141,86 +130,43 @@ def batched_quad_logdet(B, u):
     return quad, logdet
 
 
-def batched_log_mvnpdf(
-    y, mu, M, omega2, v, mask, absorption, M_pair=None, use_pallas=None,
-    extra=None,
-):
+def batched_log_mvnpdf(y, mu, M, omega2, v, mask, absorption, M_pair=None):
     """log N(y; mu * a_s, (M a_s)(M a_s)^T + diag(omega2 a_s^2 + v)) for a
     batch of absorption profiles ``a_s``.
 
     :param y, mu, omega2, v: (N,) spectrum-level arrays.
     :param M: (N, k).
     :param mask: (N,) bool.
-    :param absorption: (S, N) absorption profiles.
+    :param absorption: (S, N) absorption profiles, in the spectrum dtype
+        or in a fixed-point storage format (ops/kernel_config.py), which
+        is decoded on entry.
     :param M_pair: optional precomputed ``pair_basis(M)``.
-    :param use_pallas: kernel selection (static): None = auto (Pallas on
-        TPU/f32, XLA composition otherwise), True = force the Pallas
-        kernel (interpret mode off-TPU — tests), False = force the XLA
-        composition.
-    :param extra: optional second (S, N) absorption factor — or a tuple
-        of them (the chained-absorber streams of the QMC evidence loop);
-        the effective profile is ``absorption * prod(extra)``,
-        multiplied inside the kernel (saves the HBM round trips of the
-        running product).
     :return: (S,) log densities.
     """
     k = M.shape[-1]
     if M_pair is None:
-        M_pair = likelihood_pair_basis(M, use_pallas)
-
-    # Fused Pallas kernel: everything from noise assembly through the
-    # k x k Cholesky runs VMEM-resident; see ops/logmvn_pallas.py.
-    if resolve_use_pallas(use_pallas, y):
-        from .logmvn_pallas import batched_log_mvnpdf_pallas
-
-        return batched_log_mvnpdf_pallas(
-            y, mu, M, omega2, v, mask, absorption, M_pair, k,
-            interpret=not on_tpu(y), extra=extra,
-        )
-
-    if k > 1 and M_pair.shape[-1] == k * (k + 1) // 2:
-        # a packed basis (likelihood_pair_basis on the Pallas path)
-        # reached the XLA composition: rebuild the flat layout
         M_pair = pair_basis(M)
 
-    # int16/int32-stored profiles (GPY_DLA_ABS_DTYPE) hold fixed-point
-    # codes round(a * ABS_I16_SCALE) — int32 packs two codes per lane
-    # as contiguous halves (uniform 1.5e-5 absolute error; bf16 was
-    # measured and rejected: 0.8 rms per-sample ll noise); decode on
-    # entry so the composition below runs in the spectrum dtype like
-    # the kernel path
-    def _decode(x):
-        if x.dtype == jnp.int16:
-            return x.astype(y.dtype) * (1.0 / ABS_I16_SCALE)
-        if x.dtype == jnp.int32:
-            lo = (x & 0xFFFF).astype(y.dtype)
-            hi = (x >> 16).astype(y.dtype)
-            return jnp.concatenate([lo, hi], axis=-1) * (1.0 / ABS_I16_SCALE)
-        return x.astype(y.dtype)
-
-    absorption = _decode(absorption)
-    if extra is not None:
-        for e in extra if isinstance(extra, (tuple, list)) else (extra,):
-            absorption = absorption * _decode(e)
-
-    a = jnp.where(mask, absorption, 1.0)
+    a = jnp.where(mask, decode_profile_store(absorption, y.dtype), 1.0)
     d = omega2 * a * a + v
     d_safe = jnp.where(mask, d, 1.0)
     d_inv = jnp.where(mask, 1.0 / d_safe, 0.0)  # (S, N)
 
     delta = jnp.where(mask, y - mu * a, 0.0)  # (S, N)
 
-    # capacitance: B_s = I + M^T diag(a_s^2 / d_s) M
-    w = a * a * d_inv  # (S, N)
-    B = jnp.eye(k, dtype=y.dtype) + jnp.matmul(
-        w, M_pair, precision=jax.lax.Precision.HIGHEST
-    ).reshape(-1, k, k)
+    with jax.named_scope("capacitance"):
+        # B_s = I + M^T diag(a_s^2 / d_s) M
+        w = a * a * d_inv  # (S, N)
+        B = jnp.eye(k, dtype=y.dtype) + jnp.matmul(
+            w, M_pair, precision=HIGHEST
+        ).reshape(-1, k, k)
 
-    # u_s = (M a_s)^T D^-1 delta_s
-    r = a * delta * d_inv  # (S, N)
-    u = jnp.matmul(r, M, precision=jax.lax.Precision.HIGHEST)  # (S, k)
+        # u_s = (M a_s)^T D^-1 delta_s
+        r = a * delta * d_inv  # (S, N)
+        u = jnp.matmul(r, M, precision=HIGHEST)  # (S, k)
 
-    corr, log_det_B = batched_quad_logdet(B, u)
+    with jax.named_scope("quad_logdet"):
+        corr, log_det_B = batched_quad_logdet(B, u)
 
     quad = jnp.sum(delta * delta * d_inv, axis=-1) - corr
     log_det = jnp.sum(jnp.where(mask, jnp.log(d_safe), 0.0), axis=-1) + log_det_B

@@ -1,6 +1,6 @@
 """Batched Voigt absorption profiles.
 
-TPU-first rewrite of the reference Voigt kernels (reference:
+Batched rewrite of the reference Voigt kernels (reference:
 gpy_dla_detection/voigt.py:251-322, voigt_lls.py:287-363,
 voigt_civ.py:103-175, voigt.c:253-304).  Design differences:
 
@@ -27,7 +27,7 @@ import jax.numpy as jnp
 from .. import constants as C
 from .faddeeva import RADIUS, _wofz_cf, _wofz_weideman, wofz_parts
 from .interp import chunked_searchsorted
-from .kernel_config import WINDOW_TIER, resolve_voigt_impl
+from .kernel_config import ABS_I16_SCALE, WINDOW_TIER, resolve_voigt_impl
 
 SQRT_2PI = 2.5066282746310002
 
@@ -93,31 +93,16 @@ def _unit_lyman_series_optical_depth(wavelengths, z_absorber, num_lines, sigma):
     return tau
 
 
-@jax.tree_util.register_pytree_node_class
 class WindowedTauParts(NamedTuple):
-    """Windowed unit optical depth in unplaced form: the cheap K=1
-    continued-fraction far field on the chunk-padded pixel grid plus
-    per-line window corrections with their chunk-aligned start indices.
-    ``absorption_from_unit_tau`` places + exponentiates + broadens these
-    inside one Pallas kernel on TPU (the XLA dense-broadcast placement
-    measured ~1.2 ms/spectrum of device time).
-
-    Registered as a pytree with ``num_pixels`` as STATIC aux data (a
-    plain NamedTuple would make it a traced leaf across jit/vmap
-    boundaries, where the placement kernel needs it as a Python int for
-    block shapes)."""
+    """Windowed unit optical depth in unplaced form: the cheap far field
+    on the chunk-padded pixel grid plus per-line window corrections with
+    their chunk-aligned start indices (placed by :func:`_place_windows`).
+    """
 
     far: jnp.ndarray  # (S, P_pad) far-field tau (chunk-padded pixels)
     corr: jnp.ndarray  # (S, L * FAST_WINDOW) per-line window corrections
     c0: jnp.ndarray  # (S, L) int32 chunk index of each window start
     num_pixels: int  # original (unpadded) pixel count P
-
-    def tree_flatten(self):
-        return (self.far, self.corr, self.c0), self.num_pixels
-
-    @classmethod
-    def tree_unflatten(cls, num_pixels, children):
-        return cls(*children, num_pixels)
 
 
 def chunk_pad_wavelengths(wavelengths):
@@ -130,8 +115,7 @@ def chunk_pad_wavelengths(wavelengths):
     stress test — beyond the strip's ±32-px coverage, so the Weideman
     core went missing).  Padded positions' far field and corrections
     land beyond P and are sliced off by the placement
-    (_place_windows / the Pallas placement kernels), so only the
-    estimate geometry matters."""
+    (_place_windows), so only the estimate geometry matters."""
     dtype = wavelengths.dtype
     P = wavelengths.shape[0]
     nc = -(-P // CHUNK)
@@ -144,55 +128,6 @@ def chunk_pad_wavelengths(wavelengths):
         )
         return jnp.concatenate([wavelengths, ext])
     return wavelengths
-
-
-def _line_center_estimates(wl_chunks, lam_c_all):
-    """(center pixel, window start chunk) per (sample, line) on a
-    chunk-padded grid, by the f32 fast estimate: a chunk-level count
-    plus a LINEAR within-chunk map from the chunk endpoints — ~0.01 px
-    curvature error on the log-uniform SDSS grid, within the window
-    placement's ~±15 px tolerance (irregular-grid stress test:
-    tests/test_voigt.py).
-
-    :param wl_chunks: (nc, CHUNK) padded wavelengths.
-    :param lam_c_all: (S, L) observed-frame line centers.
-    :return: (center (S, L) int32, c0 (S, L) int32).
-    """
-    nc = wl_chunks.shape[0]
-    CH = CHUNK
-    tops = wl_chunks[:, -1]  # (nc,)
-    firsts = wl_chunks[:, 0]
-    j_chunk = jnp.arange(nc, dtype=jnp.int32)
-    q = lam_c_all[..., None]  # (S, L, 1)
-    c_idx = jnp.clip(
-        jnp.sum(q >= tops, axis=-1).astype(jnp.int32), 0, nc - 1
-    )  # (S, L)
-    sel_c = c_idx[..., None] == j_chunk  # (S, L, nc)
-    first = jnp.sum(jnp.where(sel_c, firsts, 0.0), axis=-1)
-    last = jnp.sum(jnp.where(sel_c, tops, 0.0), axis=-1)
-    within = jnp.clip(
-        (lam_c_all - first) / jnp.maximum(last - first, 1e-30) * (CH - 1),
-        0.0,
-        CH - 1.0,
-    )
-    center = c_idx * CH + within.astype(jnp.int32)  # (S, L)
-    c0 = jnp.clip((center - CH // 2) // CH, 0, nc - 2)
-    return center, c0
-
-
-def window_chunk_starts(wavelengths, z_absorber, num_lines):
-    """Chunk-aligned window start per (sample, line) for the fused
-    absorption kernel (ops/voigt_pallas.absorption_all_pallas): pads
-    the grid and runs the fast line-center estimate.
-
-    :return: (wl_pad (P_pad,), c0 (S, num_lines) int32)."""
-    dtype = wavelengths.dtype
-    wl_pad = chunk_pad_wavelengths(wavelengths)
-    nc = wl_pad.shape[0] // CHUNK
-    lam = jnp.asarray(C.LYMAN_WAVELENGTHS_A[:num_lines], dtype)
-    lam_c_all = (1.0 + z_absorber)[:, None] * lam  # (S, L)
-    _, c0 = _line_center_estimates(wl_pad.reshape(nc, CHUNK), lam_c_all)
-    return wl_pad, c0
 
 
 def _windowed_tau_parts(wavelengths, z_absorber, num_lines, sigma):
@@ -213,31 +148,19 @@ def _windowed_tau_parts(wavelengths, z_absorber, num_lines, sigma):
     wl_pad = chunk_pad_wavelengths(wavelengths)
     wl_chunks = wl_pad.reshape(nc, CH)
 
-    # f32 fast path for the window lookups: the (S, 128) chunk-row
-    # gathers and the chunked_searchsorted row gather each cost ~1.8 ms
-    # per 32-spectrum batch step on TPU (XLA's gather is output-row-rate
-    # bound regardless of the tiny operand), so
-    #  * the line-center pixel index is computed by a chunk-level count
-    #    plus a LINEAR within-chunk estimate from the chunk endpoints —
-    #    on the log-uniform SDSS grid the curvature error is ~0.01 px,
-    #    and the window placement tolerates ~±15 px (the CF_FAR_RADIUS
-    #    annulus spans ±48 px inside the window's ±64 px margin);
-    #  * the two window chunks ride ONE exact one-hot MXU matmul over a
-    #    (nc-1, 2 CH) chunk-pair table pre-split into three bf16 planes
-    #    (8 mantissa bits x 3 cover f32's 24: hi = bf16(x),
-    #    mid = bf16(x - hi), lo = x - hi - mid reconstruct x bit-exactly
-    #    for normal values; the one-hot rows are exact in bf16).
-    # The f64 path (the conformance oracle's dtype) keeps the exact
-    # searchsorted + gathers.
+    # f32 fast path for the window start: the line-center pixel index is
+    # computed by a chunk-level count plus a LINEAR within-chunk
+    # estimate from the chunk endpoints — on the log-uniform SDSS grid
+    # the curvature error is ~0.01 px, and the window placement
+    # tolerates ~±15 px (the CF_FAR_RADIUS annulus spans ±48 px inside
+    # the window's ±64 px margin).  The f64 path (the conformance
+    # oracle's dtype) keeps the exact searchsorted.
     f32fast = dtype == jnp.float32
+    # each window covers chunks (c0, c0 + 1): one row of this table
+    pairs = jnp.concatenate([wl_chunks[:-1], wl_chunks[1:]], axis=1)
     if f32fast:
         tops = wl_chunks[:, -1]  # (nc,)
         firsts = wl_chunks[:, 0]
-        pairs = jnp.concatenate([wl_chunks[:-1], wl_chunks[1:]], axis=1)
-        pair_hi = pairs.astype(jnp.bfloat16)
-        r1 = pairs - pair_hi.astype(jnp.float32)
-        pair_mid = r1.astype(jnp.bfloat16)
-        pair_lo = (r1 - pair_mid.astype(jnp.float32)).astype(jnp.bfloat16)
         j_chunk = jnp.arange(nc, dtype=jnp.int32)
 
     far = jnp.zeros((S, P_pad), dtype)
@@ -286,19 +209,10 @@ def _windowed_tau_parts(wavelengths, z_absorber, num_lines, sigma):
                 CH - 1.0,
             )
             center = c_idx * CH + within.astype(jnp.int32)
-            c0 = jnp.clip((center - CH // 2) // CH, 0, nc - 2)  # (S,)
-            oh = (c0[:, None] == j_chunk[None, : nc - 1]).astype(jnp.bfloat16)
-            wl_win = (
-                jnp.dot(oh, pair_hi, preferred_element_type=jnp.float32)
-                + jnp.dot(oh, pair_mid, preferred_element_type=jnp.float32)
-                + jnp.dot(oh, pair_lo, preferred_element_type=jnp.float32)
-            )  # (S, W), bit-exact chunk-pair rows
         else:
             center = chunked_searchsorted(wavelengths, lam_c[:, 0])
-            c0 = jnp.clip((center - CH // 2) // CH, 0, nc - 2)  # (S,)
-            wl_win = jnp.concatenate(
-                [wl_chunks[c0], wl_chunks[c0 + 1]], axis=1
-            )  # (S, W)
+        c0 = jnp.clip((center - CH // 2) // CH, 0, nc - 2)  # (S,)
+        wl_win = jnp.take(pairs, c0, axis=0, mode="clip")  # (S, W)
 
         x_win = (wl_win - lam_c) * (c_over / lam_c) * inv
         ax = jnp.abs(x_win)
@@ -313,9 +227,8 @@ def _windowed_tau_parts(wavelengths, z_absorber, num_lines, sigma):
             # the strip guarantees ±32 px of coverage around the
             # estimate, so tier-2 pixels sit beyond |z| ~ 59 even
             # with the ±15 px placement tolerance and 30% grid
-            # jitter).  The stage-level timing shows the window pass
-            # is VPU-compute-bound, so halving its flops is the win
-            # (PERFORMANCE.md round 3).
+            # jitter).  This halves the arithmetic of the window
+            # pass.
             SB = 32
             nb = FAST_WINDOW // SB  # 8 blocks per window
             blocks = ax.reshape(S, nb, SB)
@@ -402,8 +315,8 @@ def _windowed_tau_parts(wavelengths, z_absorber, num_lines, sigma):
 
 
 def _place_windows(parts: WindowedTauParts):
-    """XLA placement of the window corrections: dense chunk broadcast
-    (no scatter, no per-row dynamic slices — see the windowed fn's
+    """Placement of the window corrections: dense chunk broadcast (no
+    scatter, no per-row dynamic slices — see the windowed fn's
     docstring).  Returns the dense (S, P) unit tau."""
     far, corr, c0_all, P = parts
     S, P_pad = far.shape
@@ -444,11 +357,9 @@ def _unit_lyman_series_optical_depth_windowed(
         tau += (c0 == j) * corr[:128] + (c0 + 1 == j) * corr[128:]
 
     broadcast over the chunk index j builds the full correction in one
-    fused elementwise expression -- no XLA scatter (pathological on
-    TPU), no per-row dynamic slices (Mosaic 128-alignment + row-loop
-    serialization), and no masked .at[].add chain (round-trips the full
-    tau through HBM per candidate start; measured 14.2 vs 18.7
-    spectra/s end to end in round 1).
+    fused elementwise expression -- no scatter, no per-row dynamic
+    slices, and no masked .at[].add chain (which would round-trip the
+    full tau through device memory per candidate start).
     """
     return _place_windows(
         _windowed_tau_parts(wavelengths, z_absorber, num_lines, sigma)
@@ -461,18 +372,11 @@ def unit_lyman_optical_depth(
     num_lines: int = 3,
     sigma: float = C.THERMAL_SIGMA_CGS,
     impl: str | None = None,
-    as_parts: bool = False,
 ):
     """Per-unit-column-density Lyman-series optical depth: the expensive
     (Faddeeva) factor of a Voigt profile, which depends on the absorber
     redshift but NOT on nhi.  ``tau = nhi * unit_tau``; see
     :func:`absorption_from_unit_tau`.
-
-    ``as_parts=True`` (windowed path only) returns a
-    :class:`WindowedTauParts` instead of the dense (S, P) array, letting
-    ``absorption_from_unit_tau`` place the window corrections inside the
-    fused Pallas tail kernel.  Falls back to the dense array when the
-    windowed path is ineligible.
 
     This is the sharing point between the DLA and subDLA models: the
     reference draws both models' redshifts from the *same* Halton
@@ -488,8 +392,6 @@ def unit_lyman_optical_depth(
         and wavelengths.ndim == 1
         and sigma == C.THERMAL_SIGMA_CGS
     ):
-        if as_parts:
-            return _windowed_tau_parts(wavelengths, z_absorber, num_lines, sigma)
         return _unit_lyman_series_optical_depth_windowed(
             wavelengths, z_absorber, num_lines, sigma
         )
@@ -507,64 +409,21 @@ def absorption_from_unit_tau(
     conv) tail of :func:`voigt_absorption`, reusable across
     column-density families.
 
-    On TPU/f32 the exp and the convolution run as one fused Pallas
-    kernel (the XLA unrolled convolution pays a lane relayout per
-    shifted read — 12.6% of total device time on the bench profile).
-    A :class:`WindowedTauParts` input additionally moves the window
-    placement into the same kernel.
-
     :param out_dtype: storage dtype of the result (None = the input
-        dtype).  The QMC evidence loop stores the (S, N) profiles as
-        int16 fixed point (GPY_DLA_ABS_DTYPE, models/evidence.py;
-        round(a * ABS_I16_SCALE)): the math here stays f32 and only the
-        final store quantizes, halving every downstream HBM pass over
-        the profile array.
+        dtype; see :func:`encode_profile_store`).  The math stays in the
+        input dtype and only the final store quantizes.
     """
     nhi = jnp.asarray(nhi)
-    from .kernel_config import on_tpu, pallas_eligible
-
-    # pallas_eligible (not just f32): globally-enabled x64 puts Mosaic
-    # in the i64 index mode it rejects, so an x64 session driving the
-    # TPU at pipeline dtype f32 must take the XLA tail
-    if isinstance(unit_tau, WindowedTauParts):
-        if (
-            broadening
-            and on_tpu(unit_tau.far)
-            and pallas_eligible(unit_tau.far)
-            and unit_tau.far.ndim == 2
-            and nhi.ndim == 1
-        ):
-            from .voigt_pallas import absorption_windowed_pallas
-
-            return absorption_windowed_pallas(
-                unit_tau, nhi, out_dtype=out_dtype
-            )
-        unit_tau = _place_windows(unit_tau)
-    if (
-        broadening
-        and on_tpu(unit_tau)
-        and pallas_eligible(unit_tau)
-        and unit_tau.ndim == 2
-        and nhi.ndim == 1
-    ):
-        from .voigt_pallas import absorption_from_unit_tau_pallas
-
-        return absorption_from_unit_tau_pallas(
-            unit_tau, nhi, out_dtype=out_dtype
-        )
     raw = jnp.exp(-nhi[..., None] * unit_tau)
     out = instrumental_broadening(raw) if broadening else raw
     return encode_profile_store(out, out_dtype)
 
 
 def encode_profile_store(out, out_dtype):
-    """XLA-side profile-storage encoder (the Pallas twin lives in
-    ops/voigt_pallas._encode_store): f32 verbatim, int16 fixed-point
+    """Profile-storage encoder: float dtypes verbatim, int16 fixed-point
     codes, int32 packed i16-pair codes (ops/kernel_config.py)."""
     if out_dtype is None:
         return out
-    from .kernel_config import ABS_I16_SCALE
-
     dt = jnp.dtype(out_dtype)
     if dt == jnp.int16:
         out = jnp.round(out * ABS_I16_SCALE)
@@ -578,6 +437,18 @@ def encode_profile_store(out, out_dtype):
             )
         return v[..., :h] | (v[..., h:] << 16)
     return out.astype(out_dtype)
+
+
+def decode_profile_store(x, dtype):
+    """Inverse of :func:`encode_profile_store`: stored profiles back to
+    ``dtype`` (exact for float storage; the fixed-point grid otherwise)."""
+    if x.dtype == jnp.int16:
+        return x.astype(dtype) * (1.0 / ABS_I16_SCALE)
+    if x.dtype == jnp.int32:
+        lo = (x & 0xFFFF).astype(dtype)
+        hi = (x >> 16).astype(dtype)
+        return jnp.concatenate([lo, hi], axis=-1) * (1.0 / ABS_I16_SCALE)
+    return x.astype(dtype)
 
 
 def voigt_absorption(
@@ -594,13 +465,12 @@ def voigt_absorption(
     :param wavelengths: (P,) observed (padded) wavelengths [A].
     :param nhi: (...,) HI column densities [cm^-2].
     :param z_absorber: (...,) absorber redshifts.
-    :param impl: evaluation strategy (static): None = auto (import-time
-        default — "windowed" on TPU/f32 since round 2, agreeing with
-        "exact" to ~1e-4 relative in log evidence), "exact" = full
-        Weideman+CF blend at every pixel (the conformance path),
-        "windowed" = K=1 far-field CF plus the exact blend on a
-        chunk-aligned 256-px window per line.  The fast path requires
-        1-D inputs and the default thermal sigma (the window sizing
+    :param impl: evaluation strategy (static; ops/kernel_config.py):
+        None or "exact" = full Weideman+CF blend at every pixel,
+        "windowed" = f32 far-field rational plus the exact blend on a
+        chunk-aligned 256-px window per line (agrees with "exact" to
+        ~1e-4 relative in log evidence).  The windowed path requires
+        f32, 1-D inputs and the default thermal sigma (the window sizing
         assumes it) and falls back to "exact" otherwise.
     :return: (..., P - 6) if ``broadening`` else (..., P).
     (reference: gpy_dla_detection/voigt.py:251-322)

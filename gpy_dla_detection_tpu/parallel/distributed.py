@@ -3,9 +3,9 @@
 The reference scales across machines with SLURM job arrays writing
 independent shard files merged offline (reference:
 slurm/submit_gp_find_lls.sh:7-13, CDDF_analysis/sbatch_reunion.py).
-The TPU-native equivalent: one JAX process per host joined through
+The JAX equivalent: one JAX process per host joined through
 ``jax.distributed``, the global device mesh spanning all hosts (data
-parallel over spectra rides ICI within a slice / DCN across slices),
+parallel over spectra),
 plus the same shard-file pattern for fault tolerance — a failed host's
 shard is simply re-run and ``analysis.catalog_tools.merge_catalogs``
 assembles the survey catalog.

@@ -89,7 +89,7 @@ class Parameters:
     # vs multi_dlas/process_qsos_multiple_dlas_meanflux.m:240-288)
     suppress_mean_flux: bool = True
 
-    # --- fixed-shape padding for the TPU compute path -------------------
+    # --- fixed-shape padding for the compiled compute path --------------
     # number of model-window pixels each spectrum is padded to; the
     # 911.75-1215.75 A window at 1e-4 dex spacing spans ~1251 pixels.
     num_pixels_padded: int = 1280

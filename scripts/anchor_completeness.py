@@ -16,7 +16,7 @@ don't).
   set_data/get_interp preprocessing, voigt_civ kernel, and
   log_mvnpdf_low_rank with the K + V covariance (civ_gp.py:158-237) —
   under the same logmeanexp - log(S) estimator our engine uses.  Any
-  rolloff discrepancy then isolates our vectorized TPU engine from the
+  rolloff discrepancy then isolates our vectorized JAX engine from the
   reference's serial numpy stack.
 
 The reference loop is serial numpy (~minutes/spectrum at production
@@ -36,9 +36,11 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+from gpy_dla_detection_tpu.utils.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 import numpy as np
 

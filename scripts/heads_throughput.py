@@ -2,8 +2,8 @@
 
 Each head processes DIFFERENT synthetic spectra through its pipelined
 many-path; ms/spectrum = total wall time / count with compilation
-excluded by a warm-up pass (methodology: PERFORMANCE.md — wall clock
-around full materialization with different inputs per call).
+excluded by a warm-up pass (wall clock around full materialization
+with different inputs per call).
 
 Usage: python scripts/heads_throughput.py [--count 64] [--head all]
 """
@@ -13,8 +13,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from gpy_dla_detection_tpu.utils.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 import numpy as np
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Multi-host survey launcher — the TPU-native replacement of the
+# Multi-host survey launcher — the JAX replacement of the
 # reference's SLURM job-array pattern (reference:
 # slurm/submit_gp_find_lls.sh:7-13).
 #

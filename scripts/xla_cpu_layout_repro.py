@@ -3,7 +3,7 @@ round-3's multichip dryrun (MULTICHIP_r03.json), recorded per VERDICT r3
 item 1.
 
 The production QMC evidence program with PACKED i16-pair profile storage
-(GPY_DLA_ABS_DTYPE=i16p), compiled for a sample-sharded 8-device host
+(abs_dtype="i16p"), compiled for a sample-sharded 8-device host
 mesh, computes level-1 per-sample log-likelihoods that differ from the
 single-device compile by O(100).  The bisect (round 4):
 
@@ -26,14 +26,14 @@ single-device compile by O(100).  The bisect (round 4):
   reproduce bit-identically); i16 (unpacked) and f32 storage pass at
   <1e-3 because layout assignment happens to keep default layouts.
 
-Repo-side guard: models/evidence.py resolves the compact-storage
-default to exact f32 storage off-TPU (the packed path's encode/decode
-run inside Mosaic kernels on TPU, a different code generator, where
-parity is pinned by tests/test_pipeline_conformance.py).
+Repo-side guard: profile storage defaults to the pipeline dtype
+(ops/kernel_config.resolve_abs_store); packed storage runs only when a
+caller asks for it.  XLA:GPU is a different code generator: its parity
+for packed storage is checked on the card by chip_smoke.py.
 
-Run this after a jax/jaxlib upgrade: if all three sections print OK,
-the upstream bug is fixed and the off-TPU guard in models/evidence.py
-can be dropped.
+Run this after a jax/jaxlib upgrade, and before making packed storage
+a default: if all three sections print OK, the upstream CPU bug is
+fixed.
 
 Usage:  python scripts/xla_cpu_layout_repro.py
 """
@@ -46,13 +46,6 @@ CHILD = r"""
 import os, sys
 import numpy as np
 import jax
-
-# pin dispatch to host CPU: TPU plugins may register themselves even
-# under JAX_PLATFORMS=cpu and would flip the kernel auto-selection
-try:
-    jax.config.update("jax_default_device", jax.devices("cpu")[0])
-except RuntimeError:
-    pass
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -122,7 +115,6 @@ def run(storage: str, extra_flags: str = "") -> float:
         JAX_PLATFORMS="cpu",
         XLA_FLAGS=f"--xla_force_host_platform_device_count=8 {extra_flags}".strip(),
     )
-    env.pop("GPY_DLA_ABS_DTYPE", None)
     out = subprocess.run(
         [sys.executable, "-c", CHILD, storage],
         env=env, capture_output=True, text=True,
@@ -149,6 +141,6 @@ if __name__ == "__main__":
     ok = d_nofuse < 1e-2 and d_f32 < 1e-2 and d_i16 < 1e-2
     if d_bug < 1e-2:
         print("UPSTREAM BUG APPEARS FIXED: packed storage is clean on this "
-              "jaxlib — the off-TPU guard in models/evidence.py can be dropped.")
+              "jaxlib's CPU backend.")
     print("OK" if ok else "UNEXPECTED: control configurations diverged")
     sys.exit(0 if ok else 1)

@@ -1,17 +1,11 @@
 """Hermetic head-accuracy gates (VERDICT r3 item 7, suite-sized).
 
 Scaled-down twins of scripts/accuracy_gates.py (which runs the
-full-scale version — 300/200/200 spectra at 10k samples — on the real
-TPU and writes ACCURACY.json): measured detection/estimation accuracy
-over batches of synthetic spectra with injected absorbers, printed to
-the test log, with gates on the detectable regime.
-
-Measured full-scale numbers (ACCURACY.json, round 4): zQSO
-P(|dz|<0.5) = 1.0 over 300 spectra (worst |dz| 0.0077, reference gate
-0.98 — reference: tests/test_zestimation.py:68-70); LLS completeness
-1.00 at logNHI >= 19.5 falling to ~0.05 at 17.8-18.5 (physics: a
-logNHI ~ 18 Lya line at SNR ~ 10 is ~percent-deep), FP rate 0; CIV
-completeness 1.00 at logN >= 14.2 falling to 0 at 13.3-13.6, FP 0.
+full-scale version — 300/200/200 spectra at 10k samples — and writes
+ACCURACY.json): measured detection/estimation accuracy over batches of
+synthetic spectra with injected absorbers, printed to the test log,
+with gates on the detectable regime (zQSO: reference gate
+P(|dz|<0.5) > 0.98 — reference: tests/test_zestimation.py:68-70).
 """
 
 import numpy as np

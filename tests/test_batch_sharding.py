@@ -67,37 +67,51 @@ def test_batch_matches_unsharded(setup):
         np.testing.assert_allclose(a.p_dla, b.p_dla, rtol=1e-6)
 
 
-def test_batch_pallas_on_mesh_matches_unsharded(setup):
-    """The fused Pallas kernel (interpret mode on CPU) under shard_map
-    over the 8-device mesh must match the unsharded XLA composition.
+@pytest.mark.parametrize(
+    "variant",
+    [
+        dict(voigt_impl="windowed"),
+        dict(voigt_impl="windowed", abs_dtype="i16p"),
+        dict(abs_dtype="i16"),
+    ],
+    ids=["windowed", "windowed-i16p", "i16"],
+)
+def test_batch_variants_on_mesh_match_unsharded(setup, variant):
+    """The selectable f32 variants (windowed Voigt, fixed-point profile
+    storage) under shard_map over the 8-device mesh match the unsharded
+    f64 reference.
 
-    On real hardware the same code path runs the compiled kernel per
-    shard — no GSPMD partitioning of a pallas_call is ever required
-    (VERDICT r1 item 1: the kernel previously fell back to the XLA
-    composition whenever mesh.devices.size > 1)."""
+    Tolerances: the null evidence is one f32 Woodbury solve (rtol 2e-5);
+    the DLA evidences carry the variants' own approximations (windowed
+    far field ~1e-4 relative per sample, 1.5e-5 absolute storage grid)
+    summed over ~1,000 pixels, an absolute error of O(0.1) whatever the
+    evidence's size (atol 0.2); p_dla atol 2e-3.
+
+    XLA:CPU miscompiles the f32 exact-Voigt program with f32 or packed
+    i16p storage once the null, subDLA and DLA evidences are fused into
+    one batch program (NaN, or O(100) errors; --xla_disable_hlo_passes=
+    fusion restores the right values), so those two combinations are
+    checked on the GPU by chip_smoke.py and not here."""
     params, learned, prior, dla_s, sub_s, spectra = setup
     key = jax.random.PRNGKey(42)
 
-    plain = process_batch(
+    ref = process_batch(
         learned, spectra, dla_s, sub_s, prior, params, key, MAX_DLAS,
-        mesh=None, dtype=np.float32, use_pallas=False,
+        mesh=None,
     )
     mesh = make_spectra_mesh(jax.devices("cpu"))
     sharded = process_batch(
         learned, spectra, dla_s, sub_s, prior, params, key, MAX_DLAS,
-        mesh=mesh, dtype=np.float32, use_pallas=True,
+        mesh=mesh, dtype=np.float32, **variant,
     )
-    for a, b in zip(plain, sharded):
+    for a, b in zip(ref, sharded):
         np.testing.assert_allclose(
-            a.log_evidence_null, b.log_evidence_null, rtol=2e-5
+            b.log_evidence_null, a.log_evidence_null, rtol=2e-5
         )
-        # f32 kernel-vs-composition rounding is amplified by the
-        # categorical resampling between levels; ~1e-3 relative is the
-        # expected scale
         np.testing.assert_allclose(
-            a.log_evidences_dla, b.log_evidences_dla, rtol=2e-3
+            b.log_evidences_dla, a.log_evidences_dla, rtol=0, atol=0.2
         )
-        np.testing.assert_allclose(a.p_dla, b.p_dla, atol=2e-3)
+        np.testing.assert_allclose(b.p_dla, a.p_dla, atol=2e-3)
 
 
 def test_sharded_samples_axis_matches_unsharded(setup):

@@ -9,7 +9,7 @@ from gpy_dla_detection_tpu.data.synthetic import (
 )
 from gpy_dla_detection_tpu.params import Parameters
 
-from .test_fits import _write_speclite
+from gpy_dla_detection_tpu.data.fits import write_speclite as _write_speclite
 
 
 def test_run_bayes_select_cli(tmp_path, monkeypatch):

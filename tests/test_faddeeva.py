@@ -1,4 +1,4 @@
-"""Validate the TPU-native Faddeeva function against scipy.special.wofz."""
+"""Validate the JAX Faddeeva function against scipy.special.wofz."""
 
 import numpy as np
 import pytest
@@ -50,7 +50,7 @@ def test_voigt_profile_matches_scipy(sigma, gamma):
 
 
 def test_wofz_float32_accuracy():
-    """The f32 path (what the TPU runs).
+    """The f32 path (what the production pipeline runs).
 
     f32 rounding limits the cancellation-dominated annulus 3 < |z| < 20
     at y < 5e-4 (profile values ~1e-6 of the line core, where the

@@ -3,70 +3,13 @@ standard-conforming FITS file (astropy is not available here)."""
 
 import numpy as np
 
-from gpy_dla_detection_tpu.data.fits import read_fits_tables, read_spec
-
-
-def _card(key, value, comment=""):
-    if isinstance(value, bool):
-        v = "T" if value else "F"
-        body = f"{key:<8}= {v:>20}"
-    elif isinstance(value, int):
-        body = f"{key:<8}= {value:>20}"
-    elif isinstance(value, str):
-        body = f"{key:<8}= '{value:<8}'"
-    else:
-        body = f"{key:<8}= {value:>20}"
-    if comment:
-        body += f" / {comment}"
-    return body.ljust(80)[:80]
-
-
-def _block(cards):
-    text = "".join(cards) + "END".ljust(80)
-    pad = (-len(text)) % 2880
-    return (text + " " * pad).encode("ascii")
-
-
-def _write_speclite(path, flux, loglam, ivar, and_mask):
-    n = flux.shape[0]
-    rec = np.zeros(
-        n,
-        dtype=[("flux", ">f4"), ("loglam", ">f4"), ("ivar", ">f4"), ("and_mask", ">i4")],
-    )
-    rec["flux"] = flux
-    rec["loglam"] = loglam
-    rec["ivar"] = ivar
-    rec["and_mask"] = and_mask
-    data = rec.tobytes()
-    pad = (-len(data)) % 2880
-
-    primary = _block([_card("SIMPLE", True), _card("BITPIX", 8), _card("NAXIS", 0)])
-    table_header = _block(
-        [
-            _card("XTENSION", "BINTABLE"),
-            _card("BITPIX", 8),
-            _card("NAXIS", 2),
-            _card("NAXIS1", rec.dtype.itemsize),
-            _card("NAXIS2", n),
-            _card("PCOUNT", 0),
-            _card("GCOUNT", 1),
-            _card("TFIELDS", 4),
-            _card("TTYPE1", "flux"),
-            _card("TFORM1", "E"),
-            _card("TTYPE2", "loglam"),
-            _card("TFORM2", "E"),
-            _card("TTYPE3", "ivar"),
-            _card("TFORM3", "E"),
-            _card("TTYPE4", "and_mask"),
-            _card("TFORM4", "J"),
-            _card("EXTNAME", "COADD"),
-        ]
-    )
-    with open(path, "wb") as f:
-        f.write(primary)
-        f.write(table_header)
-        f.write(data)
-        f.write(b"\x00" * pad)
+from gpy_dla_detection_tpu.data.fits import (
+    _block,
+    _card,
+    read_fits_tables,
+    read_spec,
+    write_speclite as _write_speclite,
+)
 
 
 def test_read_fits_tables_roundtrip(tmp_path):

@@ -1,6 +1,7 @@
 """Low-rank MVN log density vs scipy and the reference implementation."""
 
 import numpy as np
+import pytest
 from scipy.stats import multivariate_normal
 
 from gpy_dla_detection_tpu.ops.logmvn import (
@@ -82,185 +83,117 @@ def test_batched_log_mvnpdf_matches_single():
         np.testing.assert_allclose(got[s], ref, rtol=1e-9)
 
 
-def test_batched_pallas_kernel_small_rank():
-    """The fused kernel must handle ranks other than 20 (the CIV model
-    uses its own rank) and ill-conditioned capacitances.  On real TPUs
-    this regression additionally guards the MXU precision of the
-    rank-1-update selection matmuls: at bf16 DEFAULT precision the
-    Cholesky diagonals go negative and the evidences come out NaN
-    (found on the CIV model; ops/logmvn_pallas.py)."""
+@pytest.mark.parametrize("store", ["i16", "i16p"])
+def test_batched_log_mvnpdf_decodes_profile_store(store):
+    """Fixed-point profile storage (ops/kernel_config.ABS_STORES) is
+    decoded on entry: the likelihood of the encoded profiles equals the
+    likelihood of the decoded f32 profiles exactly, and stays within the
+    1.5e-5 quantization of the exact profiles."""
+    import jax.numpy as jnp
+
+    from gpy_dla_detection_tpu.ops.kernel_config import ABS_STORES
+    from gpy_dla_detection_tpu.ops.voigt import (
+        decode_profile_store,
+        encode_profile_store,
+    )
+
+    rng = np.random.default_rng(3)
+    N, k, S = 512, 4, 72
+    M = (rng.normal(size=(N, k)) / np.sqrt(k) * 0.1).astype(np.float32)
+    y = (1 + 0.1 * rng.normal(size=N)).astype(np.float32)
+    mu = np.ones(N, np.float32)
+    omega2 = rng.uniform(0.01, 0.05, N).astype(np.float32)
+    v = rng.uniform(0.02, 0.1, N).astype(np.float32)
+    mask = rng.uniform(size=N) > 0.1
+    absorption = jnp.asarray(np.exp(-rng.random((S, N))).astype(np.float32))
+    args = [jnp.asarray(x) for x in (y, mu, M, omega2, v, mask)]
+
+    codes = encode_profile_store(absorption, ABS_STORES[store])
+    assert codes.dtype == ABS_STORES[store]
+    decoded = decode_profile_store(codes, jnp.float32)
+    # half a code step, plus f32 rounding of the decode
+    assert np.abs(np.asarray(decoded) - np.asarray(absorption)).max() < 0.51 / 32767
+    got = np.asarray(batched_log_mvnpdf(*args, codes))
+    np.testing.assert_array_equal(got, np.asarray(batched_log_mvnpdf(*args, decoded)))
+    exact = np.asarray(batched_log_mvnpdf(*args, absorption))
+    np.testing.assert_allclose(got, exact, atol=5e-3 * np.mean(np.abs(exact)))
+
+
+def _dot_precisions(jaxpr):
+    """Precision of every dot_general in a jaxpr, sub-jaxprs included."""
+    from jax.extend.core import ClosedJaxpr, Jaxpr
+
+    def subs(value):
+        if isinstance(value, ClosedJaxpr):
+            yield value.jaxpr
+        elif isinstance(value, Jaxpr):
+            yield value
+        elif isinstance(value, (tuple, list)):
+            for v in value:
+                yield from subs(v)
+
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for value in eqn.params.values():
+            for sub in subs(value):
+                out.extend(_dot_precisions(sub))
+    return out
+
+
+def _precision_cases():
+    import jax.numpy as jnp
+
+    from gpy_dla_detection_tpu.models import training as T
+
+    rng = np.random.default_rng(0)
+    N, k, S, Q = 64, 5, 8, 3
+    f = lambda *shape: jnp.asarray(rng.uniform(0.5, 1.5, shape), jnp.float32)
+    M = f(N, k)
+    mask = jnp.ones(N, bool)
+    p = T.TrainingParams(
+        M=M, log_omega=f(N), log_c_0=f(), log_tau_0=f(), log_beta=f()
+    )
+    lya = f(Q, N) + 2.0
+    return {
+        "log_mvnpdf_low_rank": (
+            log_mvnpdf_low_rank, (f(N), f(N), M, f(N), mask)
+        ),
+        "batched_log_mvnpdf": (
+            batched_log_mvnpdf, (f(N), f(N), M, f(N), f(N), mask, f(S, N))
+        ),
+        "spectrum_loss": (
+            lambda *a: T.spectrum_loss(*a, num_forest_lines=3),
+            (f(N), lya[0], f(N), mask, f() + 3.0, p),
+        ),
+        "batched_spectrum_losses": (
+            lambda *a: T.batched_spectrum_losses(*a, num_forest_lines=3),
+            (p, f(Q, N), lya, f(Q, N), jnp.ones((Q, N), bool), f(Q) + 3.0),
+        ),
+    }
+
+
+@pytest.mark.parametrize(
+    "name",
+    [
+        "log_mvnpdf_low_rank",
+        "batched_log_mvnpdf",
+        "spectrum_loss",
+        "batched_spectrum_losses",
+    ],
+)
+def test_likelihood_products_pin_highest_precision(name):
+    """Every matrix product of the Woodbury log-densities runs at
+    Precision.HIGHEST: at default precision a float32 product may run
+    in TF32 on a GPU (about three decimal digits), which the evidences
+    and the training loss cannot afford."""
     import jax
-    import jax.numpy as jnp
+    from jax.lax import Precision
 
-    from gpy_dla_detection_tpu.ops.logmvn import batched_log_mvnpdf
-
-    rng = np.random.default_rng(3)
-    N, k, S = 700, 5, 64
-    M = (0.05 * np.sin(np.arange(N)[:, None] / 40.0 + np.arange(k))).astype(
-        np.float32
-    )
-    args = [
-        (1 + 0.01 * rng.normal(size=N)).astype(np.float32),  # y
-        np.ones(N, np.float32),  # mu
-        M,
-        np.zeros(N, np.float32),  # omega2 = 0 (the CIV configuration)
-        np.full(N, 0.03**2, np.float32),  # v small -> large capacitance
-        np.ones(N, bool),
-    ]
-    absorption = np.exp(-rng.random((S, N))).astype(np.float32)
-    args = [jnp.asarray(x) for x in args]
-    a = np.asarray(batched_log_mvnpdf(*args, jnp.asarray(absorption), use_pallas=False))
-    b = np.asarray(batched_log_mvnpdf(*args, jnp.asarray(absorption), use_pallas=True))
-    assert np.isfinite(b).all()
-    np.testing.assert_allclose(a, b, atol=5e-3 * np.mean(np.abs(a)))
-
-
-def test_pallas_chain_layouts_agree():
-    """Row-layout and transposed (samples-on-lanes) factorization-chain
-    kernels must agree with the XLA composition, including when the
-    sample count needs lane padding (S not a multiple of 128) and with
-    a chained ``extra`` factor (ops/logmvn_pallas.py)."""
-    import jax.numpy as jnp
-
-    from gpy_dla_detection_tpu.ops.logmvn import batched_log_mvnpdf
-    from gpy_dla_detection_tpu.ops.logmvn_pallas import (
-        batched_log_mvnpdf_pallas,
-    )
-
-    rng = np.random.default_rng(7)
-    N, k, S = 512, 4, 72  # S=72: pads to 80 rows, then to 128 lanes
-    M = (rng.normal(size=(N, k)) / np.sqrt(k) * 0.1).astype(np.float32)
-    y = (1 + 0.1 * rng.normal(size=N)).astype(np.float32)
-    mu = np.ones(N, np.float32)
-    omega2 = rng.uniform(0.01, 0.05, N).astype(np.float32)
-    v = rng.uniform(0.02, 0.1, N).astype(np.float32)
-    mask = rng.uniform(size=N) > 0.1
-    absorption = np.exp(-rng.random((S, N))).astype(np.float32)
-    extra = np.exp(-rng.random((S, N))).astype(np.float32)
-
-    args = [jnp.asarray(x) for x in (y, mu, M, omega2, v, mask)]
-    A = jnp.asarray(absorption)
-    ref = np.asarray(
-        batched_log_mvnpdf(
-            *args, A, use_pallas=False, extra=jnp.asarray(extra)
-        )
-    )
-    # the surviving chain matrix (round 5 deleted the rejected
-    # row-layout, fused single-kernel and four-dot variants): flat
-    # transposed rank-1/rank-2 (the packed=0 ablation + odd-k
-    # semantics), packed rank-1 (odd-k fallback under packed), the
-    # production packed rank-2 combined-dot, and both u-dot lowerings
-    for chain_r2, packed, u_split in (
-        (False, False, None),  # flat rank-1 (odd-k shape of the t path)
-        (True, False, None),   # flat rank-2 (GPY_DLA_PACKED=0 ablation)
-        (False, True, None),   # packed rank-1 (odd-k fallback)
-        (True, True, None),    # PRODUCTION: packed rank-2 combined dot
-        (True, True, True),    # 3-pass bf16-split u dot
-        (True, True, False),   # 6-pass HIGHEST u dot
-    ):
-        got = np.asarray(
-            batched_log_mvnpdf_pallas(
-                *args, A, pair_basis(args[2]), k,
-                interpret=True, extra=jnp.asarray(extra),
-                chain_r2=chain_r2, packed=packed, u_split=u_split,
-            )
-        )
-        np.testing.assert_allclose(
-            got, ref, atol=5e-3 * np.mean(np.abs(ref)),
-            err_msg=f"chain_r2={chain_r2} "
-                    f"packed={packed} u_split={u_split}",
-        )
-
-
-def test_pallas_i16_profile_decode():
-    """int16 fixed-point and int32 packed-pair absorption/stream
-    storage (GPY_DLA_ABS_DTYPE, models/evidence.py) must decode
-    identically in the Pallas kernel and the XLA composition, including
-    the padding rows (full-scale code = absorption 1.0) when S is not
-    block-aligned."""
-    import jax.numpy as jnp
-
-    from gpy_dla_detection_tpu.ops.kernel_config import ABS_I16_SCALE
-    from gpy_dla_detection_tpu.ops.logmvn import batched_log_mvnpdf
-    from gpy_dla_detection_tpu.ops.logmvn_pallas import (
-        batched_log_mvnpdf_pallas,
-    )
-    from gpy_dla_detection_tpu.ops.voigt import encode_profile_store
-
-    rng = np.random.default_rng(3)
-    N, k, S = 512, 4, 72  # pads to 80 rows in the kernel wrapper
-    M = (rng.normal(size=(N, k)) / np.sqrt(k) * 0.1).astype(np.float32)
-    y = (1 + 0.1 * rng.normal(size=N)).astype(np.float32)
-    mu = np.ones(N, np.float32)
-    omega2 = rng.uniform(0.01, 0.05, N).astype(np.float32)
-    v = rng.uniform(0.02, 0.1, N).astype(np.float32)
-    mask = rng.uniform(size=N) > 0.1
-    absorption = np.exp(-rng.random((S, N))).astype(np.float32)
-    extra = np.exp(-rng.random((S, N))).astype(np.float32)
-
-    args = [jnp.asarray(x) for x in (y, mu, M, omega2, v, mask)]
-    ref16 = None
-    for store in (jnp.int16, jnp.int32):
-        A = encode_profile_store(jnp.asarray(absorption), store)
-        E = encode_profile_store(jnp.asarray(extra), store)
-        ref = np.asarray(
-            batched_log_mvnpdf(*args, A, use_pallas=False, extra=E)
-        )
-        got = np.asarray(
-            batched_log_mvnpdf_pallas(
-                *args, A, pair_basis(args[2]), k, interpret=True, extra=(E,)
-            )
-        )
-        np.testing.assert_allclose(
-            got, ref, atol=5e-3 * np.mean(np.abs(ref)), err_msg=str(store)
-        )
-        if ref16 is None:
-            ref16 = ref
-        else:
-            # packed pairs hold exactly the plain i16 codes
-            np.testing.assert_array_equal(ref, ref16)
-
-
-def test_pallas_multi_extra_streams():
-    """``extra`` as a tuple of chained-absorber streams (multiplied in
-    VMEM, the level >= 3 evidence configuration) must equal the XLA
-    composition with the materialized product (ops/logmvn_pallas.py)."""
-    import jax.numpy as jnp
-
-    from gpy_dla_detection_tpu.ops.logmvn import batched_log_mvnpdf
-    from gpy_dla_detection_tpu.ops.logmvn_pallas import (
-        batched_log_mvnpdf_pallas,
-    )
-
-    rng = np.random.default_rng(11)
-    N, k, S = 512, 4, 48
-    M = (rng.normal(size=(N, k)) / np.sqrt(k) * 0.1).astype(np.float32)
-    y = (1 + 0.1 * rng.normal(size=N)).astype(np.float32)
-    mu = np.ones(N, np.float32)
-    omega2 = rng.uniform(0.01, 0.05, N).astype(np.float32)
-    v = rng.uniform(0.02, 0.1, N).astype(np.float32)
-    mask = rng.uniform(size=N) > 0.1
-    absorption = np.exp(-rng.random((S, N))).astype(np.float32)
-    e1, e2, e3 = (
-        np.exp(-rng.random((S, N))).astype(np.float32) for _ in range(3)
-    )
-
-    args = [jnp.asarray(x) for x in (y, mu, M, omega2, v, mask)]
-    A = jnp.asarray(absorption)
-    for extras in ((e1,), (e1, e2), (e1, e2, e3)):
-        prod = np.prod(np.stack(extras), axis=0)
-        ref = np.asarray(
-            batched_log_mvnpdf(
-                *args, A, use_pallas=False, extra=jnp.asarray(prod)
-            )
-        )
-        got = np.asarray(
-            batched_log_mvnpdf_pallas(
-                *args, A, pair_basis(args[2]), k, interpret=True,
-                extra=tuple(jnp.asarray(e) for e in extras),
-            )
-        )
-        np.testing.assert_allclose(
-            got, ref, atol=5e-3 * np.mean(np.abs(ref)),
-            err_msg=f"n_extra={len(extras)}",
-        )
+    fn, args = _precision_cases()[name]
+    precisions = _dot_precisions(jax.make_jaxpr(fn)(*args).jaxpr)
+    assert precisions, f"{name}: no dot_general traced"
+    for prec in precisions:
+        assert prec is not None, f"{name}: a dot_general has default precision"
+        assert all(q == Precision.HIGHEST for q in prec), (name, prec)

@@ -25,18 +25,23 @@ def test_native_faddeeva_matches_scipy():
 
 
 def test_native_voigt_matches_reference():
-    import sys
+    """Native Voigt profile == the in-repo f64 exact path
+    (ops/voigt.voigt_absorption, impl="exact")."""
+    import jax.numpy as jnp
 
-    sys.path.insert(0, "/root/reference")
-    from gpy_dla_detection import voigt as ref_voigt
+    from gpy_dla_detection_tpu.ops.voigt import voigt_absorption
 
     wl = 3600.0 * 10 ** (1e-4 * np.arange(1000))
     nhi = np.array([10**20.3, 10**21.5])
     z = np.array([2.5, 3.0])
     got = native.voigt_absorption(wl, nhi, z, num_lines=3)
-    for i in range(2):
-        ref = ref_voigt.voigt_absorption(wl, float(nhi[i]), float(z[i]), 3)
-        np.testing.assert_allclose(got[i], ref, atol=1e-8, rtol=1e-6)
+    want = np.asarray(
+        voigt_absorption(
+            jnp.asarray(wl), jnp.asarray(nhi), jnp.asarray(z), 3, impl="exact"
+        )
+    )
+    assert want.dtype == np.float64
+    np.testing.assert_allclose(got, want, atol=1e-8, rtol=1e-6)
 
 
 def test_native_preprocess_matches_python():

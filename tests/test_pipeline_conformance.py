@@ -215,7 +215,7 @@ def test_subdla_evidence_matches_reference(setup):
 
 
 def test_i16_profile_storage_accuracy(setup):
-    """int16 fixed-point profile storage (GPY_DLA_ABS_DTYPE default) vs
+    """int16 fixed-point profile storage (abs_dtype="i16"/"i16p") vs
     exact f32 storage: the stored absorption quantizes once to a
     1/32767 grid (1.5e-5 uniform absolute error) — the level evidences
     and per-sample log likelihoods must stay orders of magnitude inside

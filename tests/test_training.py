@@ -217,7 +217,7 @@ def test_host_mean_flux_twin_matches_jnp_op():
     """The host-numpy mean-flux lift used by prepare_training_set must
     match the jnp op build_spectrum_model applies at inference time —
     the twin exists so the one-time host prep never pays a device round
-    trip per spectrum (remote-TPU links make that minutes at Q=256)."""
+    trip per spectrum (Q = 65k at reference scale)."""
     from gpy_dla_detection_tpu.models.training import _mean_flux_suppression_np
     from gpy_dla_detection_tpu.ops.optical_depth import mean_flux_suppression
 

@@ -1,10 +1,15 @@
 """Shared runtime utilities: the bounded batched-dispatch pipeline and
 the identity-keyed device-table memo."""
 
+import os
+
 import numpy as np
+import pytest
 
 from gpy_dla_detection_tpu.utils.memo import memo_by_identity
 from gpy_dla_detection_tpu.utils.pipeline import pipelined_batches
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_pipelined_batches_order_padding_and_aux():
@@ -78,3 +83,27 @@ def test_memo_by_identity_hit_rebuild_and_eviction():
         o = object()
         memo_by_identity(cache, (id(o), i), o, build(i), max_entries=4)
     assert len(cache) <= 5  # 4 + the one just inserted before eviction
+
+
+@pytest.mark.parametrize("env_dir", [None, "set"])
+def test_compile_cache_directory(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is used as it is and nothing
+    is changed; otherwise the cache goes to <checkout>/.jax_cache."""
+    import jax
+
+    from gpy_dla_detection_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_dir:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            jax.config.update("jax_compilation_cache_dir", "untouched")
+            assert compile_cache.configure_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == "untouched"
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            want = os.path.join(REPO, ".jax_cache")
+            assert compile_cache.configure_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

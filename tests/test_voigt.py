@@ -269,43 +269,19 @@ def test_windowed_far_field_truncation_all_lines():
     assert np.median(err) < 1e-6, np.median(err)
 
 
-def test_absorption_tail_pallas_matches_jnp():
-    """The fused exp+broadening kernel (interpret mode) equals the jnp
-    composition, including the non-divisor sample-count pad path."""
+def test_windowed_parts_placement():
+    """The unplaced windowed-tau parts, placed by the dense chunk
+    broadcast, reproduce the dense windowed path exactly, and the
+    absorption tail of the placed tau is exp + 7-tap broadening."""
     import jax.numpy as jnp
-    import numpy as np
 
-    from gpy_dla_detection_tpu.ops.voigt import instrumental_broadening
-    from gpy_dla_detection_tpu.ops.voigt_pallas import (
-        absorption_from_unit_tau_pallas,
-    )
-
-    rng = np.random.default_rng(0)
-    for S in (16, 23):  # 23 exercises the pad-to-block path
-        tau = jnp.asarray(rng.uniform(0, 3, (S, 70)).astype(np.float32))
-        nhi = jnp.asarray(10 ** rng.uniform(20, 22, S).astype(np.float32))
-        want = instrumental_broadening(jnp.exp(-nhi[:, None] * tau))
-        got = absorption_from_unit_tau_pallas(tau, nhi, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=2e-6, atol=1e-7
-        )
-
-
-def test_windowed_parts_and_placement_kernel():
-    """The unplaced windowed-tau parts + Pallas placement kernel
-    (interpret mode) reproduce the dense windowed path exactly."""
-    import jax.numpy as jnp
-    import numpy as np
-
+    from gpy_dla_detection_tpu import constants as C
     from gpy_dla_detection_tpu.ops.voigt import (
-        WindowedTauParts,
         _place_windows,
         _unit_lyman_series_optical_depth_windowed,
         _windowed_tau_parts,
         absorption_from_unit_tau,
     )
-    from gpy_dla_detection_tpu.ops.voigt_pallas import absorption_windowed_pallas
-    from gpy_dla_detection_tpu import constants as C
 
     rng = np.random.default_rng(2)
     P = 300
@@ -320,230 +296,69 @@ def test_windowed_parts_and_placement_kernel():
         wl, z, 3, C.THERMAL_SIGMA_CGS
     )
     parts = _windowed_tau_parts(wl, z, 3, C.THERMAL_SIGMA_CGS)
+    assert parts.far.shape == (S, 384) and parts.c0.shape == (S, 3)
     np.testing.assert_allclose(
         np.asarray(_place_windows(parts)), np.asarray(dense), rtol=0, atol=0
     )
-
-    from gpy_dla_detection_tpu.ops.voigt import instrumental_broadening
-
     want = instrumental_broadening(jnp.exp(-nhi[:, None] * dense))
-    got = absorption_windowed_pallas(parts, nhi, interpret=True)
     np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=2e-6, atol=1e-7
+        np.asarray(absorption_from_unit_tau(dense, nhi)), np.asarray(want),
+        rtol=2e-6, atol=1e-7,
     )
 
-    # the CPU fallback of absorption_from_unit_tau places the parts
-    got2 = absorption_from_unit_tau(parts, nhi)
-    np.testing.assert_allclose(
-        np.asarray(got2), np.asarray(want), rtol=2e-6, atol=1e-7
-    )
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("impl", [None, "exact", "windowed"])
+def test_voigt_impl_choice_is_keyed_on_dtype(dtype, impl):
+    """The Voigt strategy follows the explicit choice and the dtype, and
+    nothing else: None means the exact blend, and the windowed variant
+    is an f32 fast path that f64 (the reference dtype) resolves to
+    exact."""
+    import jax.numpy as jnp
+
+    from gpy_dla_detection_tpu.ops.kernel_config import resolve_voigt_impl
+
+    x = jnp.zeros(4, dtype)
+    want = "windowed" if (impl == "windowed" and dtype == "float32") else "exact"
+    assert resolve_voigt_impl(impl, x) == want
+    # and the profile follows it: the windowed f32 path differs from the
+    # exact one in the far wings, every other combination is the exact
+    # path bit for bit
+    wl = jnp.asarray(_wavelength_grid(300, 4200.0), dtype)
+    z = jnp.asarray([2.5, 2.6], dtype)
+    nhi = jnp.asarray([1e20, 3e20], dtype)
+    got = np.asarray(voigt_absorption(wl, nhi, z, 3, impl=impl))
+    exact = np.asarray(voigt_absorption(wl, nhi, z, 3, impl="exact"))
+    if want == "exact":
+        np.testing.assert_array_equal(got, exact)
+    else:
+        assert not np.array_equal(got, exact)
+        np.testing.assert_allclose(got, exact, rtol=0, atol=2e-3)
+
+
+def test_voigt_impl_rejects_unknown():
+    from gpy_dla_detection_tpu.ops.kernel_config import resolve_voigt_impl
+
+    with pytest.raises(ValueError, match="voigt impl"):
+        resolve_voigt_impl("pallas", np.zeros(2, np.float32))
 
 
 @pytest.mark.parametrize(
-    "wtier,poly", [(False, False), (True, False), (False, True)]
+    "choice,dtype,num_pixels,want",
+    [
+        (None, "float32", 1280, None),
+        ("f32", "float32", 1280, None),
+        ("i16", "float32", 1280, "int16"),
+        ("i16p", "float32", 1280, "int32"),
+        ("i16p", "float32", 1279, "int16"),  # packed pairs need even N
+        ("float64", "float64", 1280, None),
+        ("float32", "float64", 1280, "float32"),
+    ],
 )
-def test_absorption_all_pallas_matches_windowed(monkeypatch, wtier, poly):
-    """The fully fused absorption kernel (far field + windows +
-    placement + exp + broadening + encode in one pallas_call, interpret
-    mode) matches the dense windowed path for every family, on both a
-    regular and a ±30% jittered log grid, with the XLA oracle's
-    two-tier window evaluation (WINDOW_TIER) both off and on.
+def test_profile_store_choice(choice, dtype, num_pixels, want):
+    """Profile storage is an explicit choice, resolved against the
+    pipeline dtype and the pixel count (None = keep the dtype)."""
+    from gpy_dla_detection_tpu.ops.kernel_config import resolve_abs_store
 
-    Tolerances: at pixels 1-2 px from a line core the f32 Weideman
-    evaluation computes a ~1e-13-scale w from O(1) intermediates —
-    cancellation puts BOTH Weideman paths ~1e-3 (absorption units)
-    from the f64 exact oracle, and fusion-order/FMA differences move
-    them within that shared noise floor (measured: mutual 3.5e-4 max
-    while each sits 0.8-1.2e-3 from truth).  The poly path evaluates
-    exp(-u) directly (no cancellation) and measures ~20x CLOSER to
-    truth (4.7e-5), so its mutual difference vs the XLA path IS the
-    XLA path's own error — the mutual bound loosens to 2e-3 and the
-    truth-anchored bound tightens to "at least as accurate"."""
-    import gpy_dla_detection_tpu.ops.voigt as V
-
-    monkeypatch.setattr(V, "WINDOW_TIER", wtier)
-    import jax.numpy as jnp
-
-    from gpy_dla_detection_tpu import constants as C
-    from gpy_dla_detection_tpu.ops.voigt import (
-        _unit_lyman_series_optical_depth,
-        _unit_lyman_series_optical_depth_windowed,
-        instrumental_broadening,
-    )
-    from gpy_dla_detection_tpu.ops.voigt_pallas import (
-        absorption_all_pallas,
-        absorption_from_unit_tau_pallas,
-    )
-
-    rng = np.random.default_rng(3)
-    P = 300
-    base = 1215.67 * 3.9 * 10 ** (1e-4 * np.arange(P))
-    steps = np.diff(base) * (1.0 + 0.3 * rng.uniform(-1, 1, P - 1))
-    jittered = base[0] + np.concatenate([[0.0], np.cumsum(steps)])
-    S = 24
-    z = jnp.asarray(rng.uniform(2.9, 3.8, S).astype(np.float32))
-    nhi_dla = jnp.asarray(10 ** rng.uniform(20, 22, S).astype(np.float32))
-    nhi_sub = jnp.asarray(10 ** rng.uniform(19.5, 20.3, S).astype(np.float32))
-
-    for grid in (base, jittered):
-        wl = jnp.asarray(grid.astype(np.float32))
-        dense = _unit_lyman_series_optical_depth_windowed(
-            wl, z, 3, C.THERMAL_SIGMA_CGS
-        )
-        tau64 = _unit_lyman_series_optical_depth(
-            jnp.asarray(np.asarray(wl, np.float64)),
-            jnp.asarray(np.asarray(z, np.float64)),
-            3,
-            C.THERMAL_SIGMA_CGS,
-        )
-        got = absorption_all_pallas(
-            wl, z, (nhi_dla, nhi_sub), 3, interpret=True, poly=poly
-        )
-        for g, n in zip(got, (nhi_dla, nhi_sub)):
-            want = instrumental_broadening(jnp.exp(-n[:, None] * dense))
-            np.testing.assert_allclose(
-                np.asarray(g), np.asarray(want), rtol=0,
-                atol=2e-3 if poly else 5e-4,
-            )
-            # truth-anchored: the fused kernel must be AS accurate as
-            # the XLA windowed path it replaces (the poly path must be
-            # at least as close — it measures ~20x closer)
-            n64 = jnp.asarray(np.asarray(n, np.float64))
-            truth = np.asarray(
-                instrumental_broadening(jnp.exp(-n64[:, None] * tau64))
-            )
-            e_got = np.abs(np.asarray(g, np.float64) - truth).max()
-            e_want = np.abs(np.asarray(want, np.float64) - truth).max()
-            bound = e_want + 1e-4 if poly else max(1.5 * e_want, 1e-4)
-            assert e_got <= bound, (e_got, e_want)
-
-        # packed i16-pair encode: the int32 output must be exactly the
-        # fixed-point encode of the kernel's own f32 output (the
-        # storage format is independent of which kernel produced it)
-        gf = absorption_all_pallas(
-            wl, z, (nhi_dla,), 3, interpret=True, poly=poly
-        )[0]
-        got_p = absorption_all_pallas(
-            wl, z, (nhi_dla,), 3, interpret=True, poly=poly,
-            out_dtype=jnp.int32,
-        )[0]
-        codes = np.round(np.asarray(gf) * 32767.0).astype(np.int32)
-        h = codes.shape[1] // 2
-        expect = codes[:, :h] | (codes[:, h:] << 16)
-        np.testing.assert_array_equal(np.asarray(got_p), expect)
-
-
-def test_absorption_all_pallas_lls_break(monkeypatch):
-    """The fused kernel's Lyman-limit break (lls_break=True, interpret
-    mode) matches voigt_absorption_lls — the break is linear in nhi and
-    rides the shared unit tau."""
-    import gpy_dla_detection_tpu.ops.voigt as V
-
-    monkeypatch.setattr(V, "WINDOW_TIER", False)
-    import jax.numpy as jnp
-
-    from gpy_dla_detection_tpu.ops.voigt import voigt_absorption_lls
-    from gpy_dla_detection_tpu.ops.voigt_pallas import absorption_all_pallas
-
-    rng = np.random.default_rng(5)
-    P = 1664
-    # grid reaching blueward of the Lyman limit (the LLS search window)
-    wl = jnp.asarray(
-        (850.0 * 4.2 * 10 ** (1e-4 * np.arange(P))).astype(np.float32)
-    )
-    S = 16
-    z = jnp.asarray(rng.uniform(3.0, 3.6, S).astype(np.float32))
-    nhi = jnp.asarray(10 ** rng.uniform(17.5, 20.5, S).astype(np.float32))
-
-    # off-TPU resolve_voigt_impl forces "exact", so this pins the fused
-    # kernel against the exact-f32 oracle: the tolerance carries both
-    # the windowed-vs-exact far-field truncation (~5e-5) and the shared
-    # near-core f32 cancellation floor (~1e-3; see the windowed parity
-    # test above)
-    want = voigt_absorption_lls(wl, nhi, z, 3, impl="exact")
-    got = absorption_all_pallas(
-        wl, z, (nhi,), 3, interpret=True, lls_break=True
-    )[0]
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=0, atol=2.5e-3
-    )
-    err = np.abs(np.asarray(got) - np.asarray(want))
-    # away from the cancellation floor the agreement must be tight:
-    # the near-core population is ~0.7% of pixels (~4 px x 3 lines per
-    # sample), so the 99th percentile must sit at the far-field level
-    assert np.quantile(err, 0.99) < 5e-5, np.quantile(err, 0.99)
-
-
-def test_fused_absorption_orchestration_parity():
-    """batch_evidences with the fused absorption kernel (forced on via
-    monkeypatched gates, interpret mode) matches the parts + placement
-    composition it replaces."""
-    import jax
-    import jax.numpy as jnp
-
-    import gpy_dla_detection_tpu.parallel.batch as B
-    from gpy_dla_detection_tpu.data.samples import (
-        generate_dla_samples,
-        generate_subdla_samples,
-    )
-    from gpy_dla_detection_tpu.data.spectrum import astype
-    from gpy_dla_detection_tpu.data.synthetic import (
-        synthetic_learned_model,
-        synthetic_spectrum,
-    )
-    from gpy_dla_detection_tpu.data.spectrum import stack
-    from gpy_dla_detection_tpu.ops import voigt_pallas as VP
-    from gpy_dla_detection_tpu.params import Parameters
-
-    params = Parameters(num_dla_samples=128, num_pixels_padded=256,
-                        min_lambda=1140.0, max_lambda=1190.0,
-                        normalization_min_lambda=1195.0,
-                        normalization_max_lambda=1215.0)
-    learned = synthetic_learned_model(params)
-    dla_s = generate_dla_samples(params)
-    sub_s = generate_subdla_samples(params)
-    specs = stack([
-        astype(synthetic_spectrum(params, learned, 3.0 + 0.1 * i, seed=i),
-               np.float32)
-        for i in range(2)
-    ])
-    keys = jax.random.split(jax.random.PRNGKey(0), 2)
-    learned32 = learned.astype(np.float32)
-
-    def run():
-        return B._evidences_fn(params, 2, None, "windowed", True)(
-            learned32, specs,
-            jnp.asarray(dla_s.offset_samples, jnp.float32),
-            jnp.asarray(dla_s.log_nhi_samples, jnp.float32),
-            jnp.asarray(dla_s.nhi_samples, jnp.float32),
-            jnp.asarray(dla_s.offset_samples, jnp.float32),
-            jnp.asarray(sub_s.log_nhi_samples, jnp.float32),
-            jnp.asarray(sub_s.nhi_samples, jnp.float32),
-            keys,
-        )
-
-    base = run()
-
-    orig = VP.absorption_all_pallas
-    forced = lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
-    old_on_tpu, old_fused = B.on_tpu, B.FUSED_ABS
-    VP.absorption_all_pallas = forced
-    B.on_tpu, B.FUSED_ABS = (lambda x: True), True
-    try:
-        fused = run()
-    finally:
-        VP.absorption_all_pallas = orig
-        B.on_tpu, B.FUSED_ABS = old_on_tpu, old_fused
-
-    np.testing.assert_allclose(
-        np.asarray(fused.log_evidence_null),
-        np.asarray(base.log_evidence_null), rtol=0, atol=1e-5,
-    )
-    np.testing.assert_allclose(
-        np.asarray(fused.dla.log_evidences),
-        np.asarray(base.dla.log_evidences), rtol=0, atol=2e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(fused.subdla.log_evidences),
-        np.asarray(base.subdla.log_evidences), rtol=0, atol=2e-3,
-    )
+    got = resolve_abs_store(choice, np.dtype(dtype), num_pixels)
+    assert (None if got is None else np.dtype(got).name) == want
